@@ -1,0 +1,121 @@
+"""The port's rollout, pick cost and MPPI solve against the JAX package.
+
+Inputs are made with numpy from a seed; the MPPI noise is JAX's own draw
+(its key split and `sample_noise`), injected into the port's solve.
+Tolerances are those of tests/test_pallas.py: rollout totals 1e-5 at H=1
+and 1e-3 at H=3; u0 1e-5, J 1e-4, nominal 1e-5.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gym_kmanip_tpu.dynamics.state import init_state as jinit_state
+from gym_kmanip_tpu.models import get_model as jax_get_model
+from gym_kmanip_tpu.mpc import mppi as jmppi
+from gym_kmanip_tpu.mpc.cost import CostParams as JCostParams
+from gym_kmanip_tpu.mpc.cost import cube_pick_cost as jcube_pick_cost
+from gym_kmanip_tpu.mpc.rollout import rollout_with_traj as jrollout_with_traj
+
+from gym_kmanip_torch.dynamics.state import state_from_numpy
+from gym_kmanip_torch.models import from_numpy_model
+from gym_kmanip_torch.mpc import mppi
+from gym_kmanip_torch.mpc.cost import CostParams, cube_pick_cost
+from gym_kmanip_torch.mpc.rollout import rollout
+
+torch.set_num_threads(1)
+
+K, H = 8, 3
+
+
+@pytest.fixture(scope="module")
+def solo():
+    jm = jax_get_model("solo_arm")
+    m = from_numpy_model(jm)
+    jparams, params = JCostParams(), CostParams()
+    jcost = lambda s, aux, u: jcube_pick_cost(jm, s, aux, u, jparams)  # noqa: E731
+    cost = lambda s, aux, u: cube_pick_cost(m, s, aux, u, params)  # noqa: E731
+    return jm, m, jcost, cost
+
+
+def _close(got, want, atol, msg=""):
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float64),
+                               np.asarray(want, dtype=np.float64),
+                               atol=atol, rtol=0, err_msg=msg)
+
+
+def test_rollout_totals_match_jax(solo):
+    """One JAX program gives both the H=3 totals and the per-step costs,
+    whose first column is the H=1 total."""
+    jm, m, jcost, cost = solo
+    rng = np.random.RandomState(3)
+    U = (jm.home_qpos[: jm.nu] + 0.1 * rng.randn(K, H, jm.nu)).astype(np.float32)
+    js0 = jinit_state(jm)
+    total, _, steps = jax.jit(jax.vmap(
+        lambda u: jrollout_with_traj(jm, js0, u, jcost)
+    ))(U)
+
+    s0 = state_from_numpy(js0)
+    got1, _ = rollout(m, s0, torch.as_tensor(U[:, :1]), cost)
+    got3, final = rollout(m, s0, torch.as_tensor(U), cost)
+    _close(got1, np.asarray(steps)[:, 0], 1e-5, "H=1")
+    _close(got3, total, 1e-3, "H=3")
+    assert final.qpos.shape == (K, m.nq)
+
+
+def test_mppi_solve_matches_jax_with_injected_noise(solo):
+    jm, m, jcost, cost = solo
+    cfg = mppi.MPPIConfig(horizon=H, n_samples=K)
+    jcfg = jmppi.MPPIConfig(horizon=H, n_samples=K)
+    jms, js0 = jmppi.init_mppi(jm, jcfg), jinit_state(jm)
+    ms_j, u0_j, J_j = jmppi.make_mppi_solver(jm, jcfg, jcost)(jms, js0)
+    # the draw JAX's solve made: its key split, then sample_noise
+    _, sub = jax.random.split(jms.rng)
+    eps = jmppi.sample_noise(sub, K, H, jm.nu, jmppi.sigma_per_actuator(jm, jcfg.sigma),
+                             jcfg.noise_beta)
+
+    ms = mppi.init_mppi(m, cfg, seed=0)
+    solve = mppi.make_mppi_solver(m, cfg, cost)
+    ms2, u0, J = solve(ms, state_from_numpy(js0), eps=torch.as_tensor(np.array(eps)))
+    _close(u0, u0_j, 1e-5, "u0")
+    _close(J, J_j, 1e-4, "J")
+    _close(ms2.nominal, ms_j.nominal, 1e-5, "nominal")
+    assert ms2.generator is ms.generator
+
+    with pytest.raises(ValueError):
+        solve(ms, state_from_numpy(js0), eps=torch.zeros(K, H + 1, m.nu))
+
+
+def test_noise_filter_and_sigma_match_jax(solo):
+    jm, m, _, _ = solo
+    sig_j = jmppi.sigma_per_actuator(jm, 0.05)
+    sig = mppi.sigma_per_actuator(m, 0.05)
+    assert sig.dtype == np.float32 and isinstance(sig, np.ndarray)
+    np.testing.assert_array_equal(sig, sig_j)
+    np.testing.assert_array_equal(mppi._ar1_filter(7, 0.85), jmppi._ar1_filter(7, 0.85))
+
+    # the same normal draws through both AR(1) filters (full FP32)
+    key = jax.random.PRNGKey(4)
+    want = jmppi.sample_noise(key, 16, 7, jm.nu, sig_j, 0.85)
+    xi = jax.random.normal(key, (16, 7, jm.nu)) * sig_j
+    got = mppi.correlate(torch.as_tensor(np.array(xi)), 0.85)
+    _close(got, want, 1e-6)
+
+    # the port's own draws: seeded, advancing the generator, std ~ sigma
+    g = torch.Generator().manual_seed(0)
+    a = mppi.sample_noise(g, 512, 7, m.nu, torch.as_tensor(sig), 0.85)
+    b = mppi.sample_noise(g, 512, 7, m.nu, torch.as_tensor(sig), 0.85)
+    again = mppi.sample_noise(torch.Generator().manual_seed(0), 512, 7, m.nu,
+                              torch.as_tensor(sig), 0.85)
+    assert a.shape == (512, 7, m.nu) and not torch.equal(a, b) and torch.equal(a, again)
+    _close(a.std(dim=(0, 1)) / torch.as_tensor(sig), np.ones(m.nu), 0.1)
+
+
+def test_reductions_follow_jax_semantics():
+    """torch.argmin picks the first minimum and std(correction=0) is the
+    population std, as jnp.argmin and jnp.std."""
+    costs = np.array([3.0, 1.0, 2.0, 1.0], dtype=np.float32)
+    t = torch.as_tensor(costs)
+    assert int(torch.argmin(t)) == int(jax.numpy.argmin(costs)) == 1
+    assert float(torch.std(t, correction=0)) == pytest.approx(float(np.std(costs)))

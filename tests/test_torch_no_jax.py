@@ -1,0 +1,65 @@
+"""The port runs with JAX, gymnasium and the JAX package unimportable, as on
+a GPU host that has none of them."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "gymnasium", "gym_kmanip_tpu")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Block())
+
+    import torch
+    torch.set_num_threads(1)
+    import gym_kmanip_torch
+
+    names = [m.name for m in pkgutil.walk_packages(
+        gym_kmanip_torch.__path__, "gym_kmanip_torch.")]
+    for name in names:
+        importlib.import_module(name)
+
+    from gym_kmanip_torch.dynamics import init_state, substep
+    from gym_kmanip_torch.models import get_model
+    from gym_kmanip_torch.mpc.cost import CostParams, cube_pick_cost
+    from gym_kmanip_torch.mpc.mppi import MPPIConfig, init_mppi, make_mppi_solver
+
+    m = get_model("solo_arm")
+    s = init_state(m)
+    s2, (touch, xpos, xquat) = substep(m, s, 0.002)
+    assert s2.qpos.shape == (m.nq,) and bool(torch.isfinite(s2.qvel).all())
+
+    cfg = MPPIConfig(horizon=2, n_samples=4)
+    params = CostParams()
+    solve = make_mppi_solver(m, cfg, lambda st, aux, u: cube_pick_cost(m, st, aux, u, params))
+    ms, u0, J = solve(init_mppi(m, cfg, seed=0), s)
+    assert u0.shape == (m.nu,) and bool(torch.isfinite(J))
+    leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("OK", len(names))
+    """
+)
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [_REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], capture_output=True, text=True,
+        timeout=240, cwd=_REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ok, n_modules = proc.stdout.split()[-2:]
+    assert ok == "OK" and int(n_modules) >= 15
