@@ -3,20 +3,40 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, and the script exits non-zero):
-  1. build:      compile the substep CUDA kernel from gym_kmanip_torch/csrc.
-  2. kernel:     at K=256, random solo-arm states from a seed, in MPC mode
-                 (dt=0.02, implicit actuation) and env mode (dt=0.002,
-                 explicit): the kernel against its plain PyTorch version on
-                 the card (qpos and xpos 1e-5, qvel and cube 1e-4, touch
-                 equal), and the time of each.
-  3. main path:  the solo-arm MPPI pick solve at H=50, K=256 through the
-                 kernel: 20 solves with the launch count checked, the
-                 kernel path against the plain path on one injected noise
-                 draw at H=4, then solves/s of both paths.
+  1. build:       compile the four CUDA libraries from gym_kmanip_torch/csrc,
+                  one nvcc each, all at once.
+  2. K1 substep:  at K=256, random solo-arm states from a seed, in MPC mode
+                  (dt=0.02, implicit actuation) and env mode (dt=0.002,
+                  explicit): the kernel against its plain PyTorch version
+                  (qpos and xpos 1e-5, qvel and cube 1e-4, touch equal), and
+                  the time of each.
+  3. MPPI:        the solo-arm MPPI pick solve at H=50, K=256 through K1: 20
+                  solves with the launch count checked, the kernel route
+                  against the plain route on one injected noise draw at
+                  H=4, then solves/s of both routes.
   4. closed loop: the receding-horizon recipe of bench.py (H=20, K=256,
-                 2 iterations, 10 substeps of 2 ms) against the plant
-                 `control_step` for 30 steps.
-The last two lines are the card's name and power limit (nvidia-smi) and
+                  2 iterations, 10 substeps of 2 ms) against the plant
+                  `control_step` for 30 steps.
+  5. K2 pick:     the whole-horizon pick-cost kernel against its plain
+                  version at K=256 (H=1 1e-5, H=3 1e-3, H=50 1e-4 of the
+                  largest total) and against the K1 route's totals at H=50;
+                  its time.
+  6. fused MPPI:  the fused solve against the K1-route solve on one draw at
+                  H=4 (u0 1e-5, J 1e-4, nominal 1e-5); 20 solves at H=50,
+                  K=256 with n_iters K2 launches and no K1 launch per solve;
+                  solves/s beside the K1 route.
+  7. iLQR:        the production solve of bench.py:315-319 on the solo arm
+                  (H=50, 10 iterations, reduced state, Gauss-Newton EE cost,
+                  one-sided FD): launches per solve (K1 10, K3 11, K4 10), a
+                  monotone cost trace, the plan replayed on the plain route,
+                  solves/s, one solve on the plain route, and the EE
+                  tracking error after executing the plan on `control_step`.
+                  K1 (on the FD probe batch, K=1500 without contact, and the
+                  A and B slopes it gives), K3 and K4 against their plain
+                  versions on the first iteration's real inputs, K4 also on
+                  seeded problems at solo and torso widths; their times.
+                  The torso at H=100, once.
+The kernels line, then the card's name and power limit (nvidia-smi), then
 {"ok": true, "device": {...}}. Exits non-zero without a GPU.
 """
 
@@ -35,15 +55,32 @@ if not torch.cuda.is_available():
 from gym_kmanip_torch.dynamics import contacts, engine  # noqa: E402
 from gym_kmanip_torch.dynamics.state import init_state  # noqa: E402
 from gym_kmanip_torch.models import get_model, model_tensors  # noqa: E402
-from gym_kmanip_torch.mpc.cost import CostParams, cube_pick_cost  # noqa: E402
-from gym_kmanip_torch.mpc.mppi import MPPIConfig, init_mppi, make_mppi_solver  # noqa: E402
-from gym_kmanip_torch.ops import substep_cuda  # noqa: E402
+from gym_kmanip_torch.mpc.cost import (  # noqa: E402
+    CostParams, cube_pick_cost, make_ee_tracking_cost_ilqr)
+from gym_kmanip_torch.mpc.mppi import (  # noqa: E402
+    MPPIConfig, init_mppi, make_fused_pick_solver, make_mppi_solver)
+from gym_kmanip_torch.mpc.rollout import rollout  # noqa: E402
+from gym_kmanip_torch.ops import _build, riccati_cuda, rollout_feedback_cuda  # noqa: E402
+from gym_kmanip_torch.ops import kinematics as kin  # noqa: E402
+from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda  # noqa: E402
+from gym_kmanip_torch.solvers import ilqr  # noqa: E402
 from gym_kmanip_torch.utils import rotations as rot  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 K, H = 256, 50
+TORSO_H = 100
 TOL = {"qpos": 1e-5, "qvel": 1e-4, "cube13": 1e-4, "xpos": 1e-5, "xquat": 1e-5}
 OUTS = ("qpos", "qvel", "cube13", "touch", "xpos", "xquat")
+# H100 SXM datasheet peaks: HBM bytes/s, FP32 outside the
+# tensor cores (every kernel here is scalar FP32)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+WRAPPERS = {
+    "K1": substep_cuda.substep_batched,
+    "K2": rollout_pick_cuda.rollout_pick_costs,
+    "K3": rollout_feedback_cuda.rollout_feedback,
+    "K4": riccati_cuda.riccati_sweep,
+}
 
 
 def log(phase, msg):
@@ -63,6 +100,81 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def reset_counts():
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def counts():
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def check(phase, what, err, tol):
+    log(phase, f"{what}: max abs err {err:.3e} (tolerance {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"{phase}: {what} differs by {err:.3e} > {tol:.3e}")
+
+
+def max_err(a, b):
+    return float((a - b).abs().max())
+
+
+# ---- the least time the card could take for each kernel's work ----
+# Operations are counted by hand from the device code, per rollout (or per
+# sweep step), each float add, multiply, divide, square root, sine or
+# cosine as one; comparisons and selects are not counted, a clamp is two.
+# Bytes: each input read once and each output written once.
+
+def substep_flops(model, contact):
+    """csrc/substep.cuh::substep_core for one rollout."""
+    nq, T, nu = model.nq, len(model.fingertips), model.nu
+    anc = np.asarray(model.ancestors, bool)
+    hinge = np.asarray(model.jnt_type) == 0
+    f = 0
+    f += int(np.sum(np.where(hinge, 188, 172)))  # FK + velocity recursion
+    f += 183 * nq  # COM loads: offsets, accelerations, world inertia
+    f += 17 * nq + 21 * (nq - 1)  # backward pass over the tree
+    f += 48 * T  # fingertip positions and velocities
+    if contact:
+        f += 39 + 185 * T + 12 + 8 * 110  # tips vs cube, then 8 corners vs table
+    f += 8 * nq  # servo, damping, bias, implicit terms
+    f += sum(18 * int(anc[t.parent].sum()) for t in model.fingertips)  # contact reactions
+    for i in range(nq):  # mass matrix by COM Jacobians
+        a = int(anc[i].sum())
+        f += 33 + 45 * a + 13 * a * (a + 1) // 2
+    f += 3 * nq  # diagonal terms
+    f += sum(2 * j + 2 + (nq - 1 - j) * (2 * j + 1) for j in range(nq))  # Cholesky
+    f += 4 * 2 * nq * nq  # one solve + 3 constraint solves
+    f += 3 * 25 * nq + 6 * nq + 120  # constraint sweeps, integration, cube
+    return f
+
+
+def pick_cost_flops(model):
+    """csrc/rollout.cuh::pick_cost_step for one rollout and step."""
+    return 2 * model.nq + 3 * model.nu + 16 + 44 + 250
+
+
+def riccati_step_flops(n, m):
+    """csrc/riccati.cuh: one step of the sweep."""
+    Z, N1 = n + m, n + 1
+    f = Z * N1 * 2 * n  # GW
+    f += (n * n + m * n + m * m) * (2 * n + 1) + Z  # Q blocks, qv
+    f += 2 * m * m + 3 * m * m + 6 * m  # symmetrize, row stats, lift
+    f += 3 * m + 2 * m * m  # equilibration
+    f += sum(2 + (m - 1 - j) + (m - 1 - j) * (m - j) for j in range(m))  # factor
+    f += N1 * (2 * m * m + 4 * m)  # substitutions
+    f += m * N1 * (2 * m + 3) + n * N1 * (4 * m + 2) + 2 * n * N1  # value update
+    return f
+
+
+def bound(flops, nbytes):
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---- phases ----
+
 def tip_penetration(model, xpos, xquat, cube13):
     """Fingertip-cube penetration (K, T) at the pre-step frames."""
     t = model_tensors(model, xpos.device)
@@ -73,40 +185,57 @@ def tip_penetration(model, xpos, xquat, cube13):
     return pen
 
 
-def phase_kernel(model):
-    inputs = [torch.as_tensor(a, device=DEV)
-              for a in substep_cuda.random_inputs(model, K, seed=0)]
-    worst = 0.0
-    for dt, implicit in ((0.02, True), (0.002, False)):
-        got = substep_cuda.substep_batched(model, dt, True, implicit, *inputs)
-        want = substep_cuda.substep_batched_reference(model, dt, True, implicit, *inputs)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, g, w in zip(OUTS, got, want):
-            if name == "touch":
-                continue
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"kernel {name} is not finite (dt={dt})")
-            errs[name] = float((g - w).abs().max())
-        flips = (got[3] != want[3]).nonzero().tolist()
-        if flips:
-            pen = tip_penetration(model, want[4], want[5], inputs[3])
-            for k, t in flips:
-                log("kernel", f"touch flip at rollout {k} tip {t}: penetration {float(pen[k, t]):.3e}")
-            raise AssertionError(f"{len(flips)} touch flags differ (dt={dt})")
-        bad = {n: e for n, e in errs.items() if e > TOL[n]}
-        log("kernel", f"dt={dt} implicit={implicit} max_abs_err {json.dumps(errs)} "
-                      f"touching {float(want[3].float().mean()):.3f}")
-        if bad:
-            raise AssertionError(f"kernel disagrees with the plain version: {bad}")
-        worst = max(worst, max(errs.values()))
+def compare_substep(tag, model, dt, contact, implicit, inputs):
+    """K1 against its plain version on `inputs` (qpos, qvel, ctrl, cube13):
+    raises past TOL or on a touch flip; returns the largest error."""
+    got = substep_cuda.substep_batched(model, dt, contact, implicit, *inputs)
+    want = substep_cuda.substep_batched_reference(model, dt, contact, implicit, *inputs)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(OUTS, got, want):
+        if name == "touch":
+            continue
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag}: kernel {name} is not finite")
+        errs[name] = float((g - w).abs().max())
+    flips = (got[3] != want[3]).nonzero().tolist()
+    if flips:
+        pen = tip_penetration(model, want[4], want[5], inputs[3])
+        for k, t in flips:
+            log("K1", f"touch flip at rollout {k} tip {t}: penetration {float(pen[k, t]):.3e}")
+        raise AssertionError(f"{tag}: {len(flips)} touch flags differ")
+    bad = {n: e for n, e in errs.items() if e > TOL[n]}
+    log("K1", f"{tag}: max_abs_err {json.dumps(errs)} "
+              f"touching {float(want[3].float().mean()):.3f}")
+    if bad:
+        raise AssertionError(f"{tag}: kernel disagrees with the plain version: {bad}")
+    return max(errs.values())
 
-    args = (model, 0.02, True, True, *inputs)
+
+def time_substep(tag, model, contact, inputs):
+    """Kernel and plain times of K1 at dt=0.02 with implicit actuation, and
+    its bound, on `inputs`."""
+    k_ = inputs[0].shape[0]
+    args = (model, 0.02, contact, True, *inputs)
     ms = cuda_ms(lambda: substep_cuda.substep_batched(*args), 200)
     plain_ms = cuda_ms(lambda: substep_cuda.substep_batched_reference(*args), 20)
-    log("kernel", f"K={K} substep: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
-                  f"({1e6 * ms / K:.1f} ns per rollout-substep)")
-    return worst, ms, plain_ms
+    T, nq, nu = len(model.fingertips), model.nq, model.nu
+    nbytes = k_ * (4 * (2 * nq + nu + 13) + 4 * (2 * nq + 13 + 7 * nq) + T)
+    b = bound(k_ * substep_flops(model, contact), nbytes)
+    log("K1", f"{tag}: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
+              f"({1e6 * ms / k_:.1f} ns per rollout-substep); bound {b[0]:.6f} ms ({b[1]}): "
+              f"{substep_flops(model, contact)} operations per rollout-substep, {nbytes} bytes")
+    return ms, plain_ms, b
+
+
+def phase_substep(model):
+    inputs = [torch.as_tensor(a, device=DEV)
+              for a in substep_cuda.random_inputs(model, K, seed=0)]
+    worst = max(compare_substep(f"K={K} dt={dt} implicit={implicit}", model, dt, True,
+                                implicit, inputs)
+                for dt, implicit in ((0.02, True), (0.002, False)))
+    ms, plain_ms, b = time_substep(f"K={K} contact substep", model, True, inputs)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b)
 
 
 def solves_per_sec(solver, ms, sim_state, n_solves=20, repeats=5):
@@ -121,9 +250,18 @@ def solves_per_sec(solver, ms, sim_state, n_solves=20, repeats=5):
     return rates, ms
 
 
-def phase_main_path(model):
+def rate_line(r):
+    return (f"{statistics.median(r):.2f} solves/s median over {len(r)} repeats "
+            f"(min {min(r):.2f}, max {max(r):.2f})")
+
+
+def pick_cost(model):
     params = CostParams()
-    cost = lambda s, aux, u: cube_pick_cost(model, s, aux, u, params)  # noqa: E731
+    return lambda s, aux, u: cube_pick_cost(model, s, aux, u, params)  # noqa: E731
+
+
+def phase_mppi(model):
+    cost = pick_cost(model)
     cfg = MPPIConfig(horizon=H, n_samples=K)
     solver = make_mppi_solver(model, cfg, cost)
     sim_state = init_state(model, device=DEV)
@@ -131,24 +269,24 @@ def phase_main_path(model):
     ms, u0, J = solver(ms, sim_state)  # first call builds the cached tensors
     torch.cuda.synchronize()
 
-    substep_cuda.substep_batched.launches = 0
+    reset_counts()
     n_solves, Js = 20, []
     for _ in range(n_solves):
         ms, u0, J = solver(ms, sim_state)
         Js.append(J)
     torch.cuda.synchronize()
-    launches = substep_cuda.substep_batched.launches
+    launches = counts()
     expected = n_solves * H * cfg.n_substeps * cfg.n_iters
     Js = torch.stack(Js)
-    if launches != expected:
-        raise AssertionError(f"substep kernel launched {launches} times, expected {expected}")
+    if launches != {"K1": expected, "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"MPPI launches {launches}, expected {expected} of K1 only")
     if not bool(torch.isfinite(Js).all()) or u0.shape != (model.nu,):
         raise AssertionError("MPPI solve gave a non-finite cost or a wrong-shaped control")
-    log("main", f"H={H} K={K}: {n_solves} solves, {launches} kernel launches "
-                f"({launches // n_solves} per solve), J first {float(Js[0]):.4f} "
+    log("mppi", f"H={H} K={K}: {n_solves} solves, launches {launches} "
+                f"({launches['K1'] // n_solves} K1 per solve), J first {float(Js[0]):.4f} "
                 f"last {float(Js[-1]):.4f}")
 
-    # the kernel path and the plain path make the same solve on one noise draw
+    # the kernel route and the plain route make the same solve on one draw
     small = cfg._replace(horizon=4)
     eps = torch.randn((K, 4, model.nu), generator=torch.Generator(DEV).manual_seed(1),
                       device=DEV) * 0.05
@@ -156,21 +294,17 @@ def phase_main_path(model):
     ms_k, u0_k, J_k = make_mppi_solver(model, small, cost)(ms_small, sim_state, eps=eps)
     ms_p, u0_p, J_p = make_mppi_solver(model, small, cost, substep_fn=engine._substep_torch)(
         ms_small, sim_state, eps=eps)
-    du0 = float((u0_k - u0_p).abs().max())
-    dJ = float((J_k - J_p).abs())
-    dnom = float((ms_k.nominal - ms_p.nominal).abs().max())
-    log("main", f"kernel vs plain solve at H=4 K={K}: |du0| {du0:.2e} |dJ| {dJ:.2e} "
-                f"|dnominal| {dnom:.2e}")
-    if du0 > 1e-5 or dJ > 1e-4 or dnom > 1e-5:
-        raise AssertionError("kernel-path solve differs from the plain-path solve")
+    check("mppi", "K1 route vs plain route at H=4: u0", max_err(u0_k, u0_p), 1e-5)
+    check("mppi", "K1 route vs plain route at H=4: J", max_err(J_k, J_p), 1e-4)
+    check("mppi", "K1 route vs plain route at H=4: nominal", max_err(ms_k.nominal, ms_p.nominal),
+          1e-5)
 
     rates, ms = solves_per_sec(solver, ms, sim_state)
     plain = make_mppi_solver(model, cfg, cost, substep_fn=engine._substep_torch)
-    plain_rates, _ = solves_per_sec(plain, ms, sim_state)
-    for name, r in (("kernel", rates), ("plain", plain_rates)):
-        log("main", f"{name} path: {statistics.median(r):.2f} solves/s median over "
-                    f"{len(r)} x 20 solves (min {min(r):.2f}, max {max(r):.2f})")
-    return launches
+    plain_rates, _ = solves_per_sec(plain, ms, sim_state, n_solves=5)
+    log("mppi", f"K1 route: {rate_line(rates)} x 20 solves")
+    log("mppi", f"plain route: {rate_line(plain_rates)} x 5 solves")
+    return launches["K1"], rates
 
 
 def phase_closed_loop(model):
@@ -203,28 +337,355 @@ def phase_closed_loop(model):
                   f"{float(dist.mean()):.4f} m (min {float(dist.min()):.4f} m)")
 
 
+def phase_pick_kernel(model):
+    s0 = init_state(model, device=DEV)
+    rng = np.random.RandomState(0)
+    worst = 0.0
+    for h, tol in ((1, 1e-5), (3, 1e-3)):
+        U = torch.as_tensor((model.home_qpos[: model.nu] + 0.1 * rng.randn(K, h, model.nu))
+                            .astype(np.float32), device=DEV)
+        got = rollout_pick_cuda.rollout_pick_costs(model, U, s0)
+        want = rollout_pick_cuda.rollout_pick_costs_reference(model, U, s0)
+        err = max_err(got, want)
+        check("K2", f"kernel vs plain, K={K} H={h}", err, tol)
+        worst = max(worst, err)
+    U = torch.as_tensor((model.home_qpos[: model.nu] + 0.1 * rng.randn(K, H, model.nu))
+                        .astype(np.float32), device=DEV)
+    got = rollout_pick_cuda.rollout_pick_costs(model, U, s0)
+    want = rollout_pick_cuda.rollout_pick_costs_reference(model, U, s0)
+    # 50 steps with contact grow the float32 rounding of the two versions
+    # apart: their totals differed by 1.8e-4 at totals up to 12 (measured on
+    # an H100), held at 1e-4 of the largest total
+    scale = float(want.abs().max())
+    err = max_err(got, want)
+    check("K2", f"kernel vs plain, K={K} H={H} (totals up to {scale:.2f})", err, 1e-4 * scale)
+    worst = max(worst, err)
+    # the K1 route shares the substep's device code: the same tolerance
+    k1_route, _ = rollout(model, s0, U, pick_cost(model))
+    check("K2", f"kernel vs K1-route totals, K={K} H={H}", max_err(got, k1_route),
+          1e-4 * scale)
+    ms = cuda_ms(lambda: rollout_pick_cuda.rollout_pick_costs(model, U, s0), 20)
+    plain_ms = cuda_ms(lambda: rollout_pick_cuda.rollout_pick_costs_reference(model, U, s0), 2)
+    flops = K * H * (substep_flops(model, True) + pick_cost_flops(model))
+    b = bound(flops, 4 * (K * H * model.nu + 2 * model.nq + 13 + K))
+    log("K2", f"K={K} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+              f"max_abs_err {worst:.3e}, "
+              f"bound {b[0]:.6f} ms ({b[1]})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b)
+
+
+def phase_fused_mppi(model, k1_rates):
+    cost = pick_cost(model)
+    sim_state = init_state(model, device=DEV)
+    small = MPPIConfig(horizon=4, n_samples=K)
+    eps = torch.randn((K, 4, model.nu), generator=torch.Generator(DEV).manual_seed(1),
+                      device=DEV) * 0.05
+    ms_small = init_mppi(model, small, seed=0, device=DEV)
+    ms_f, u0_f, J_f = make_fused_pick_solver(model, small)(ms_small, sim_state, eps=eps)
+    ms_k, u0_k, J_k = make_mppi_solver(model, small, cost)(ms_small, sim_state, eps=eps)
+    check("fused", "fused vs K1-route solve at H=4: u0", max_err(u0_f, u0_k), 1e-5)
+    check("fused", "fused vs K1-route solve at H=4: J", max_err(J_f, J_k), 1e-4)
+    check("fused", "fused vs K1-route solve at H=4: nominal", max_err(ms_f.nominal, ms_k.nominal),
+          1e-5)
+
+    cfg = MPPIConfig(horizon=H, n_samples=K)
+    solver = make_fused_pick_solver(model, cfg)
+    ms = init_mppi(model, cfg, seed=0, device=DEV)
+    ms, u0, J = solver(ms, sim_state)
+    torch.cuda.synchronize()
+    reset_counts()
+    n_solves, Js = 20, []
+    for _ in range(n_solves):
+        ms, u0, J = solver(ms, sim_state)
+        Js.append(J)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != {"K1": 0, "K2": n_solves * cfg.n_iters, "K3": 0, "K4": 0}:
+        raise AssertionError(f"fused MPPI launches {launches}, expected "
+                             f"{n_solves * cfg.n_iters} of K2 only")
+    if not bool(torch.isfinite(torch.stack(Js)).all()):
+        raise AssertionError("fused MPPI gave a non-finite cost")
+    log("fused", f"H={H} K={K}: {n_solves} solves, launches {launches} "
+                 f"({launches['K2'] // n_solves} K2 and 0 K1 per solve)")
+    rates, _ = solves_per_sec(solver, ms, sim_state)
+    log("fused", f"fused route: {rate_line(rates)} x 20 solves; K1 route "
+                 f"{statistics.median(k1_rates):.2f} (same run)")
+    return launches["K2"]
+
+
+def ee_goal(model, s0):
+    xp, xq, _ = kin.fk(model, s0.qpos)
+    p, _ = kin.site_pose(model, xp, xq, "eer_site")
+    return p.cpu().numpy() + np.array([0.0, 0.05, -0.05], np.float32)
+
+
+def ee_error_mm(model, s0, us, goal):
+    """EE distance to the goal (mm) after each control of the plan, executed
+    open loop on the plant (examples/9_mpc_ilqr.py). The last entry is the
+    state after all H controls, which the cost does not score (no final
+    cost), so the last control only minimizes w_ctrl |u|^2; the one before
+    it is the last scored state."""
+    s, errs = s0, []
+    goal = torch.as_tensor(goal, device=DEV)
+    i = model.site_index("eer_site")
+    for t in range(us.shape[0]):
+        s, aux = engine.control_step(model, s, us[t])
+        errs.append(torch.linalg.vector_norm(aux.site_pos[i] - goal))
+    return 1e3 * torch.stack(errs).cpu().numpy()
+
+
+def ee_line(errs):
+    if not np.all(np.isfinite(errs)):
+        raise AssertionError("EE tracking error is not finite")
+    return (f"EE tracking error on control_step: {errs[-1]:.2f} mm after all "
+            f"{len(errs)} controls, {errs[-2]:.2f} mm at the last scored state, mean "
+            f"{errs.mean():.2f} mm over the plan")
+
+
+def ilqr_setup(model, horizon):
+    s0 = init_state(model, device=DEV)
+    goal = ee_goal(model, s0)
+    cost_xu, quad_xu = make_ee_tracking_cost_ilqr(model, goal, w_pos=50.0, w_vel=0.01,
+                                                  w_ctrl=0.001)
+    cfg = ilqr.ILQRConfig(horizon=horizon, n_iters=10, contact=False, reduced_state=True)
+    us = torch.as_tensor(model.home_qpos[: model.nu], dtype=torch.float32,
+                         device=DEV).repeat(horizon, 1)
+    return s0, goal, cost_xu, quad_xu, cfg, us
+
+
+def solve_checked(phase, model, cfg, cost_xu, quad_xu, solve, s0, us, expected):
+    """One solve with its launches counted, then its plan replayed open loop
+    on the plain route: the solve's trajectory and cost came from the
+    forward-pass kernel (K3, or K1 in batches), so a wrong forward pass
+    shows as a replay that disagrees."""
+    reset_counts()
+    t0 = time.perf_counter()
+    r = solve(s0, us)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    trace = r.cost_trace.cpu().numpy()
+    log(phase, f"{seconds:.3f} s; launches per solve {launches}; cost trace "
+               f"{np.array2string(trace, precision=5)}")
+    if launches != expected:
+        raise AssertionError(f"{phase}: launches {launches}, expected {expected}")
+    # non-increasing by construction (the monotone accept); finite is not
+    if not np.all(np.isfinite(trace)) or not np.all(np.diff(trace) <= 1e-5):
+        raise AssertionError(f"{phase}: cost trace is not finite and non-increasing")
+    replay = ilqr._build_pieces(model, cfg, cost_xu, quad_xu=quad_xu, ops=ilqr.PLAIN_OPS)[0]
+    x0 = ilqr.flatten_state(s0, reduced=cfg.reduced_state)
+    xs_re, cost_re = replay(x0, r.us, s0)
+    _, cost_init = replay(x0, ilqr._clip_u(model, us), s0)
+    cost = float(r.cost)
+    check(phase, f"plan replayed on the plain route: cost (solve {cost:.6f})",
+          abs(float(cost_re) - cost), 1e-3 * abs(cost))
+    check(phase, "plan replayed on the plain route: xs", max_err(xs_re, r.xs),
+          5e-3 + 1e-3 * float(r.xs.abs().max()))
+    if not cost < float(cost_init):
+        raise AssertionError(f"{phase}: the solve did not lower the cost of its warm start "
+                             f"({cost:.6f} vs {float(cost_init):.6f})")
+    log(phase, f"cost {float(cost_init):.6f} at the warm start, {cost:.6f} after the solve")
+    return r, launches, seconds
+
+
+def fd_probes(model, cfg, cost_xu, quad_xu, xs, us, s0):
+    """The states of one FD linearization's probe batch (K = H (n + m)), as
+    the substep sees them, recorded through the kernel route's derivs."""
+    seen = []
+
+    def substep(model_, s, dt, contact, implicit):
+        seen.append(s)
+        return engine.substep(model_, s, dt, contact, implicit)
+
+    ops = ilqr.KERNEL_OPS._replace(substep=substep)
+    ilqr._build_pieces(model, cfg, cost_xu, quad_xu=quad_xu, ops=ops)[1](xs, us, s0)
+    s = seen[0]
+    return [a.contiguous() for a in (s.qpos, s.qvel, s.ctrl, torch.cat(
+        [s.cube_pos, s.cube_quat, s.cube_linvel, s.cube_angvel], dim=-1))]
+
+
+def phase_ilqr(model):
+    s0, goal, cost_xu, quad_xu, cfg, us = ilqr_setup(model, H)
+    solve = ilqr.make_ilqr_solver(model, cfg, cost_xu, quad_xu=quad_xu)
+    solve(s0, us)  # first call builds the cached tensors
+    r, launches, _ = solve_checked("ilqr", model, cfg, cost_xu, quad_xu, solve, s0, us,
+                                {"K1": 10, "K2": 0, "K3": 11, "K4": 10})
+    rates = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            solve(s0, us)
+        torch.cuda.synchronize()
+        rates.append(5 / (time.perf_counter() - t0))
+    log("ilqr", f"solo H={H} 10 iterations: {rate_line(rates)} x 5 solves")
+
+    plain = ilqr.make_ilqr_solver(model, cfg, cost_xu, quad_xu=quad_xu, ops=ilqr.PLAIN_OPS)
+    t0 = time.perf_counter()
+    rp = plain(s0, us)
+    torch.cuda.synchronize()
+    tp = time.perf_counter() - t0
+    final_k, final_p = float(r.cost), float(rp.cost)
+    trace_p = rp.cost_trace.cpu().numpy()
+    log("ilqr", f"plain route solve {tp:.2f} s; trace {np.array2string(trace_p, precision=5)}; "
+                f"final cost {final_p:.6f} vs kernel route {final_k:.6f}; max |us diff| "
+                f"{max_err(rp.us, r.us):.3e}; first iteration {float(rp.cost_trace[0]):.5f} vs "
+                f"{float(r.cost_trace[0]):.5f}")
+    # a sanity check of the whole solve: separately computed solves flip
+    # line-search choices on near-ties (tests/test_parallel.py:221-230), and
+    # the plain route flips the first one here, so the iterates differ and
+    # only the final costs are compared (they ended 5e-5 apart on an H100),
+    # at 1%. The kernels' correctness is held by the per-kernel checks and
+    # the replay above.
+    if not (np.all(np.diff(trace_p) <= 1e-5) and abs(final_k - final_p) <= 0.01 * final_p):
+        raise AssertionError("plain-route iLQR solve disagrees with the kernel route")
+    log("ilqr", ee_line(ee_error_mm(model, s0, r.us, goal)))
+
+    # K1, K3 and K4 on the first iteration's real inputs
+    rollout0, derivs, _, _, _ = ilqr._build_pieces(model, cfg, cost_xu, quad_xu=quad_xu)
+    x0 = ilqr.flatten_state(s0, reduced=True)
+    xs, _ = rollout0(x0, us, s0)
+    probes = fd_probes(model, cfg, cost_xu, quad_xu, xs, us, s0)
+    n_probe = probes[0].shape[0]
+    k1 = dict(K=n_probe, launches=launches["K1"], max_abs_err=compare_substep(
+        f"iLQR FD probes K={n_probe} contact=False", model, cfg.dt, False, True, probes))
+    k1["ms"], k1["plain_ms"], k1["bound"] = time_substep(
+        f"K={n_probe} contact-free FD probes", model, False, probes)
+    dv = [a.contiguous() for a in derivs(xs, us, s0)]
+    dv_plain = ilqr._build_pieces(model, cfg, cost_xu, quad_xu=quad_xu,
+                                  ops=ilqr.PLAIN_OPS)[1](xs, us, s0)
+    # each slope divides a probe's next-state difference by its step, eps =
+    # 1e-3 here (one-sided, toward the roomier side), so a slope may differ
+    # by the substep's own tolerance over eps: 1e-2 in the qpos rows and
+    # 1e-1 in the qvel rows (the qvel probes above differed by 1.5e-5, a
+    # slope by 1.5e-2, measured on an H100)
+    nq = model.nq
+    for name, g, w in zip("AB", dv[:2], dv_plain[:2]):
+        for rows, sl in (("qpos", slice(0, nq)), ("qvel", slice(nq, 2 * nq))):
+            err = max_err(g[:, sl], w[:, sl])
+            check("K1", f"FD {name}, {rows} rows, kernel vs plain route (slopes up to "
+                        f"{float(w[:, sl].abs().max()):.3g})", err, TOL[rows] / cfg.fd_eps)
+            k1[f"fd_{name}_{rows}_err"] = err
+    lam = torch.zeros((), device=DEV)
+    ks, Ks = riccati_cuda.riccati_sweep(*dv, cfg.reg, lam_extra=lam)
+    wks, wKs = riccati_cuda.riccati_sweep_reference(*dv, cfg.reg, lam_extra=lam)
+    k4_err = max(max_err(ks, wks), max_err(Ks, wKs))
+    scale = max(float(wks.abs().max()), float(wKs.abs().max()))
+    check("K4", f"kernel vs plain on the solo solve's first iteration (gains up to {scale:.3g})",
+          k4_err, 1e-3 * scale)
+    cube0 = torch.cat([s0.cube_pos, s0.cube_quat, s0.cube_linvel, s0.cube_angvel])
+    alphas = torch.tensor(cfg.alphas, device=DEV)
+    fb_args = (model, x0, cube0, xs[:-1].contiguous(), us, ks, Ks, alphas)
+    gx, gu = rollout_feedback_cuda.rollout_feedback(*fb_args)
+    wx, wu = rollout_feedback_cuda.rollout_feedback_reference(*fb_args)
+    # 50 closed-loop steps grow the two versions' float32 rounding apart
+    # (1.3e-3 in the states with random gains, measured on an H100)
+    err_u, err_x = max_err(gu, wu), max_err(gx, wx)
+    check("K3", f"kernel vs plain at B={len(cfg.alphas)} H={H}: us", err_u,
+          1e-4 + 1e-3 * float(wu.abs().max()))
+    check("K3", f"kernel vs plain at B={len(cfg.alphas)} H={H}: xs", err_x,
+          5e-3 + 1e-3 * float(wx.abs().max()))
+    k3 = dict(max_abs_err=max(err_u, err_x),
+              ms=cuda_ms(lambda: rollout_feedback_cuda.rollout_feedback(*fb_args), 10),
+              plain_ms=cuda_ms(lambda: rollout_feedback_cuda.rollout_feedback_reference(*fb_args),
+                               2))
+    n, nu, B = 2 * model.nq, model.nu, len(cfg.alphas)
+    k3["bound"] = bound(B * H * (substep_flops(model, False) + 2 * nu * n + 3 * nu),
+                        4 * (n + 13 + H * (n + 2 * nu + nu * n) + B + B * H * (n + nu)))
+    log("K3", f"B={B} H={H}: kernel {k3['ms']:.4f} ms, plain {k3['plain_ms']:.2f} ms, "
+              f"bound {k3['bound'][0]:.6f} ms ({k3['bound'][1]})")
+
+    k4 = dict(max_abs_err=k4_err)
+    for (h, n_, m_) in ((50, 20, 10), (100, 40, 20)):
+        prob = [torch.as_tensor(a, device=DEV) for a in riccati_cuda.random_problem(3, h, n_, m_)]
+        got = riccati_cuda.riccati_sweep(*prob, cfg.reg, lam_extra=lam)
+        want = riccati_cuda.riccati_sweep_reference(*prob, cfg.reg, lam_extra=lam)
+        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+        check("K4", f"kernel vs plain, seeded ({h}, {n_}, {m_}) (gains up to {scale:.3g})", err,
+              1e-4 * scale)
+        k4["max_abs_err"] = max(k4["max_abs_err"], err)
+        ms = cuda_ms(lambda: riccati_cuda.riccati_sweep(*prob, cfg.reg, lam_extra=lam), 20)
+        plain_ms = cuda_ms(
+            lambda: riccati_cuda.riccati_sweep_reference(*prob, cfg.reg, lam_extra=lam), 2)
+        nbytes = 4 * (h * (2 * n_ * n_ + n_ * m_ + n_ + m_ + m_ * m_ + m_ * n_) + n_ + n_ * n_
+                      + 1 + h * (m_ + m_ * n_))
+        b = bound(h * riccati_step_flops(n_, m_), nbytes)
+        log("K4", f"({h}, {n_}, {m_}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                  f"bound {b[0]:.6f} ms ({b[1]})")
+        if (n_, m_) == (2 * model.nq, model.nu):  # the main path's widths
+            k4.update(ms=ms, plain_ms=plain_ms, bound=b)
+    return launches, k1, k3, k4
+
+
+def phase_ilqr_torso():
+    model = get_model("torso")
+    horizon = TORSO_H
+    s0, goal, cost_xu, quad_xu, cfg, us = ilqr_setup(model, horizon)
+    solve = ilqr.make_ilqr_solver(model, cfg, cost_xu, quad_xu=quad_xu)
+    # nq = 20 > 12: the forward passes take B-batched K1 launches, not K3
+    expected = {"K1": 10 + horizon + 10 * horizon, "K2": 0, "K3": 0, "K4": 10}
+    r, _, seconds = solve_checked("torso", model, cfg, cost_xu, quad_xu, solve, s0, us,
+                                  expected)
+    log("torso", f"H={horizon} 10 iterations: {seconds:.3f} s for the first solve")
+    log("torso", ee_line(ee_error_mm(model, s0, r.us, goal)))
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     model = get_model("solo_arm")
     log("device", f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
                   f"CUDA {torch.version.cuda}")
 
-    log("build", f"substep kernel built and loaded in {substep_cuda.build():.2f} s")
-    err, ms, plain_ms = phase_kernel(model)
-    launches = phase_main_path(model)
-    phase_closed_loop(model)
+    mods = (substep_cuda, rollout_pick_cuda, rollout_feedback_cuda, riccati_cuda)
+    t0 = time.perf_counter()
+    ready = _build.build_libraries([m.LIBRARY for m in mods])
+    for m in mods:
+        m._library()
+    log("build", f"4 libraries built in parallel and loaded in {time.perf_counter() - t0:.2f} s "
+                 f"({', '.join(f'{k} {v:.2f} s' for k, v in ready.items())})")
 
+    k1 = phase_substep(model)
+    k1["launches"], k1_rates = phase_mppi(model)
+    phase_closed_loop(model)
+    k2 = phase_pick_kernel(model)
+    k2["launches"] = phase_fused_mppi(model, k1_rates)
+    ilqr_launches, k1_ilqr, k3, k4 = phase_ilqr(model)
+    k3["launches"], k4["launches"] = ilqr_launches["K3"], ilqr_launches["K4"]
+    # K1 runs on two main paths: the MPPI solve (K=256, with contact; the
+    # row's own numbers) and the iLQR FD probes (contact-free; under "ilqr")
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_ilqr["max_abs_err"])
+    k1["ilqr"] = dict(k1_ilqr, bound_ms=k1_ilqr["bound"][0], bound_by=k1_ilqr["bound"][1])
+    del k1["ilqr"]["bound"]
+    phase_ilqr_torso()
+
+    rows = [
+        ("substep_batched", "substep.cu", "gym_kmanip_tpu/ops/pallas_substep.py:404", k1),
+        ("rollout_pick_costs", "rollout_pick.cu", "gym_kmanip_tpu/ops/pallas_substep.py:779", k2),
+        ("rollout_feedback", "rollout_feedback.cu", "gym_kmanip_tpu/ops/pallas_substep.py:581",
+         k3),
+        ("riccati_sweep", "riccati.cu", "gym_kmanip_tpu/ops/pallas_riccati.py:678", k4),
+    ]
+    for name, _, _, r in rows:
+        if r["launches"] < 1:
+            raise AssertionError(f"{name} was not launched on its main path")
+    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": "substep_batched",
+        "name": name,
         "route": "cuda",
-        "source": "gym_kmanip_torch/csrc/substep.cu",
-        "replaces": "gym_kmanip_tpu/ops/pallas_substep.py:404",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"gym_kmanip_torch/csrc/{src}",
+        "replaces": replaces,
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0],
+        "bound_by": r["bound"][1],
+        "library_ms": None,  # no single PyTorch call computes any of these
+        **({"ilqr": r["ilqr"]} if "ilqr" in r else {}),
+    } for name, src, replaces, r in rows]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

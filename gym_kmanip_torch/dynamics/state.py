@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from gym_kmanip_torch import constants as k
+from gym_kmanip_torch.models import canonical_device
 from gym_kmanip_torch.models.spec import RobotModel
 
 
@@ -38,8 +39,10 @@ class StepAux(NamedTuple):
 
 
 def init_state(model: RobotModel, cube_pos=None, cube_quat=None,
-               device="cpu") -> SimState:
-    """Home-pose state: qpos/ctrl <- home, qvel <- 0, cube at its spawn pose."""
+               device="cuda") -> SimState:
+    """Home-pose state: qpos/ctrl <- home, qvel <- 0, cube at its spawn pose,
+    on the card unless `device` says otherwise."""
+    device = canonical_device(device)
     if cube_pos is None:
         cube_pos = k.CUBE_INIT_POS
     if cube_quat is None:
@@ -60,9 +63,11 @@ def init_state(model: RobotModel, cube_pos=None, cube_quat=None,
     )
 
 
-def state_from_numpy(s, device="cpu") -> SimState:
+def state_from_numpy(s, device="cuda") -> SimState:
     """SimState from any object with SimState's fields (e.g. the JAX
-    package's SimState), as float32 tensors on `device`."""
+    package's SimState), as float32 tensors on `device` (the card unless
+    the caller passes another)."""
+    device = canonical_device(device)
     return SimState(*(
         torch.as_tensor(np.array(getattr(s, f), dtype=np.float32), device=device)
         for f in SimState._fields

@@ -138,8 +138,13 @@ class ModelTensors(NamedTuple):
 
 
 def canonical_device(device) -> torch.device:
-    """`cuda` -> `cuda:<current>`, so one card has one cache key."""
+    """`cuda` -> `cuda:<current>`, so one card has one cache key. Raises
+    if a CUDA device is asked for and there is none."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -1,6 +1,6 @@
 """MPPI (model-predictive path integral) sampling MPC.
 
-Port of `gym_kmanip_tpu/mpc/mppi.py:29-184`. K perturbed control sequences
+Port of `gym_kmanip_tpu/mpc/mppi.py:29-209`. K perturbed control sequences
 roll out as one batch, then
 
     w_k = softmax(-(S_k - min S) / (temperature * (std S + 1e-6)))
@@ -8,6 +8,9 @@ roll out as one batch, then
 with elite acceptance: slot 0 is the old nominal (zero noise), slot 1 the
 previous iteration's weighted average, and the next nominal is the best
 evaluated sequence. Controls are clamped to the actuator ctrlrange.
+`make_mppi_solver` scores the candidates with `rollout` (one substep
+launch per horizon step on the card); `make_fused_pick_solver` scores
+them with the whole-horizon pick-cost kernel (one launch per iteration).
 
 The solve path makes no host sync (no `.item()`, no host-side branch on a
 device value, no host-to-device copy after the first call), so a later
@@ -26,6 +29,7 @@ from gym_kmanip_torch.dynamics.state import SimState
 from gym_kmanip_torch.models import canonical_device, model_tensors
 from gym_kmanip_torch.models.spec import RobotModel
 from gym_kmanip_torch.mpc.rollout import rollout
+from gym_kmanip_torch.ops.rollout_pick_cuda import PickCostSpec, rollout_pick_costs
 
 
 class MPPIConfig(NamedTuple):
@@ -95,7 +99,9 @@ def sample_noise(generator: torch.Generator, n_samples: int, horizon: int, nu: i
 
 
 def init_mppi(model: RobotModel, cfg: MPPIConfig, seed: int = 0,
-              device="cpu") -> MPPIState:
+              device="cuda") -> MPPIState:
+    """The home-pose nominal and a seeded noise generator, on the card
+    unless `device` says otherwise."""
     device = canonical_device(device)
     home = torch.as_tensor(model.home_qpos[: model.nu], dtype=torch.float32,
                            device=device)
@@ -107,6 +113,7 @@ def init_mppi(model: RobotModel, cfg: MPPIConfig, seed: int = 0,
 def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
                sim_state: SimState, cost_fn: Callable,
                eps: Optional[torch.Tensor] = None, substep_fn: Callable = substep,
+               score_all: Optional[Callable] = None,
                ) -> Tuple[MPPIState, torch.Tensor, torch.Tensor]:
     """One MPC solve. Returns (new MPPIState, first control, expected cost).
 
@@ -114,7 +121,10 @@ def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
     the noise is drawn from `mppi_state.generator`, which advances in
     place; `eps` (K, H, nu) injects the noise instead, for a one-iteration
     solve (slot 0 is zeroed either way). `substep_fn` is the physics
-    substep the rollouts call (default: `engine.substep`)."""
+    substep the rollouts call (default: `engine.substep`). `score_all`
+    optionally replaces the rollout scoring pass with a fused
+    `(cand (K, H, nu), sim_state) -> (K,)` that computes the same totals
+    as `rollout(cost_fn)` to float32 rounding."""
     device = canonical_device(mppi_state.nominal.device)
     t = model_tensors(model, device)
     lo, hi = t.ctrl_lo, t.ctrl_hi
@@ -139,10 +149,13 @@ def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
         cand = torch.clamp(nominal[None] + e, lo, hi)  # (K, H, nu)
         # slot 1 scores the previous iteration's weighted average
         cand = torch.cat([cand[:1], proposal[None], cand[2:]])
-        costs, _ = rollout(
-            model, sim_state, cand, cost_fn, n_substeps=cfg.n_substeps,
-            dt=cfg.dt, contact=cfg.contact, substep_fn=substep_fn,
-        )
+        if score_all is not None:
+            costs = score_all(cand, sim_state)
+        else:
+            costs, _ = rollout(
+                model, sim_state, cand, cost_fn, n_substeps=cfg.n_substeps,
+                dt=cfg.dt, contact=cfg.contact, substep_fn=substep_fn,
+            )
         # scale-invariant temperature; population std, as jnp.std
         lam = cfg.temperature * (torch.std(costs, correction=0) + 1e-6)
         w = torch.softmax(-(costs - torch.min(costs)) / lam, dim=0)
@@ -165,5 +178,26 @@ def make_mppi_solver(model: RobotModel, cfg: MPPIConfig, cost_fn: Callable,
               eps: Optional[torch.Tensor] = None):
         return mppi_solve(model, cfg, mppi_state, sim_state, cost_fn, eps=eps,
                           substep_fn=substep_fn)
+
+    return solve
+
+
+def make_fused_pick_solver(model: RobotModel, cfg: MPPIConfig, spec=None):
+    """Single-device MPPI solver for the cube-pick cost whose whole (K, H)
+    rollout and cost is ONE kernel launch per iteration
+    (ops/rollout_pick_cuda.rollout_pick_costs) instead of H substep
+    launches and their torch glue. The totals match `rollout` with
+    `cube_pick_cost` to float32 rounding, so it is the same solve:
+    (MPPIState, SimState, eps=None) -> (MPPIState, u0, J)."""
+    spec = spec if spec is not None else PickCostSpec()
+
+    def score_all(cand, sim_state):
+        return rollout_pick_costs(model, cand, sim_state, spec, n_substeps=cfg.n_substeps,
+                                  dt=cfg.dt, contact=cfg.contact)
+
+    def solve(mppi_state: MPPIState, sim_state: SimState,
+              eps: Optional[torch.Tensor] = None):
+        return mppi_solve(model, cfg, mppi_state, sim_state, None, eps=eps,
+                          score_all=score_all)
 
     return solve

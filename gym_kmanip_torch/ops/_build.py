@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -81,3 +83,18 @@ def library_path(name: str, sources, headers) -> str:
 def load_library(name: str, sources, headers) -> ctypes.CDLL:
     """Build (once per source hash) and load the library."""
     return ctypes.CDLL(library_path(name, list(sources), list(headers)))
+
+
+def build_libraries(libraries) -> dict:
+    """Build every (name, sources, headers) library not built yet, one nvcc
+    each, all started together; returns {name: seconds until it was
+    ready}. Raises the first build's error."""
+    t0 = time.perf_counter()
+
+    def one(lib):
+        name, sources, headers = lib
+        library_path(name, list(sources), list(headers))
+        return name, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(len(libraries), 1)) as pool:
+        return dict(pool.map(one, libraries))

@@ -8,12 +8,12 @@ tensor it runs the plain version, `substep_batched_reference`. Anything
 else raises.
 
 Importing this module needs neither nvcc nor a GPU: the kernel is built
-(ops/_build.py) at its first launch, or by `build()`.
+(ops/_build.py) at its first launch, or ahead of it by
+`_build.build_libraries`.
 """
 
 import ctypes
 import functools
-import time
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ from gym_kmanip_torch.ops import _build
 
 SOURCES = ("substep.cu",)
 HEADERS = ("substep.cuh",)
+LIBRARY = ("substep", SOURCES, HEADERS)
 # (nq, fingertips) the kernel is instantiated for: solo arm; dual arm and torso
 SUPPORTED = ((10, 2), (20, 4))
 
@@ -32,7 +33,7 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("substep", SOURCES, HEADERS)
+    lib = _build.load_library(*LIBRARY)
     lib.kmanip_substep.argtypes = [
         ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_double,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -45,14 +46,6 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kmanip_substep_model_sizes.restype = ctypes.c_int
     return lib
-
-
-def build() -> float:
-    """Build (or find) and load the kernel library; returns the seconds it
-    took."""
-    t0 = time.perf_counter()
-    _library()
-    return time.perf_counter() - t0
 
 
 def pack_model(model: RobotModel):

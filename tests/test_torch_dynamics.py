@@ -27,8 +27,9 @@ from gym_kmanip_tpu.utils import rotations as jrot
 
 from gym_kmanip_torch.dynamics import contacts, engine
 from gym_kmanip_torch.dynamics.state import SimState, init_state
-from gym_kmanip_torch.models import from_numpy_model
+from gym_kmanip_torch.models import from_numpy_model, model_tensors
 from gym_kmanip_torch.ops import kinematics as kin
+from gym_kmanip_torch.ops import riccati_cuda, rollout_feedback_cuda, rollout_pick_cuda
 from gym_kmanip_torch.ops import substep_cuda
 from gym_kmanip_torch.utils import rotations as rot
 
@@ -191,7 +192,7 @@ def test_substep_on_cpu_runs_plain(solo):
         assert torch.equal(a, b)
     assert substep_cuda.substep_batched.launches == before
     # an unbatched state keeps its shapes
-    one, (t1, x1, _) = engine.substep(m, init_state(m), 0.002)
+    one, (t1, x1, _) = engine.substep(m, init_state(m, device="cpu"), 0.002)
     assert one.qpos.shape == (m.nq,) and t1.shape == (2,) and x1.shape == (m.nq, 3)
 
 
@@ -216,9 +217,12 @@ def test_substep_cuda_imports_without_nvcc(solo):
 
 _HOST_HARNESS = r"""
 #include <cmath>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 #include "substep.cuh"
+#include "rollout.cuh"
+#include "riccati.cuh"
 extern "C" int host_substep(int nq, int T, const float* mf, const int* mi, double dt,
     int contact, int implicit, int K, const float* qpos, const float* qvel,
     const float* ctrl, const float* cube13, float* qo, float* vo, float* co,
@@ -241,6 +245,73 @@ extern "C" int host_substep(int nq, int T, const float* mf, const int* mi, doubl
   }
   return -1;
 }
+
+// the whole-horizon kernels, thread by thread (csrc/rollout.cuh)
+extern "C" int host_rollout_pick(int nq, int T, const float* mf, const int* mi, double dt,
+    int contact, int implicit, int n_substeps, int K, int H, const float* spec_f,
+    const int* spec_i, const float* ctrl_seqs, const float* state0, float* cost) {
+  using namespace kmanip;
+  const StepConsts c = make_consts(dt);
+  const PickSpec spec = make_pick_spec(spec_f, spec_i);
+  if (nq == 10 && T == 2) {
+    ModelView<10, 2> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      cost[k] = rollout_pick_thread<10, 2>(k, m, c, contact, implicit, n_substeps, H, spec,
+                                           ctrl_seqs, state0);
+    return 0;
+  }
+  if (nq == 20 && T == 4) {
+    ModelView<20, 4> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      cost[k] = rollout_pick_thread<20, 4>(k, m, c, contact, implicit, n_substeps, H, spec,
+                                           ctrl_seqs, state0);
+    return 0;
+  }
+  return -1;
+}
+
+extern "C" int host_rollout_feedback(int nq, int T, const float* mf, const int* mi, double dt,
+    int n_substeps, int B, int H, const float* alphas, const float* x0, const float* cube0,
+    const float* xs_nom, const float* us_nom, const float* ks, const float* Ks,
+    const float* lo, const float* hi, float* xs, float* us) {
+  using namespace kmanip;
+  const StepConsts c = make_consts(dt);
+  if (nq == 10 && T == 2) {
+    ModelView<10, 2> m{mf, mi};
+    for (int b = 0; b < B; ++b)
+      rollout_feedback_thread<10, 2>(b, m, c, n_substeps, H, alphas, x0, cube0, xs_nom,
+                                     us_nom, ks, Ks, lo, hi, xs, us);
+    return 0;
+  }
+  if (nq == 20 && T == 4) {
+    ModelView<20, 4> m{mf, mi};
+    for (int b = 0; b < B; ++b)
+      rollout_feedback_thread<20, 4>(b, m, c, n_substeps, H, alphas, x0, cube0, xs_nom,
+                                     us_nom, ks, Ks, lo, hi, xs, us);
+    return 0;
+  }
+  return -1;
+}
+
+// the Riccati sweep's block code with one thread and a no-op barrier
+struct NoSync {
+  void operator()() const {}
+};
+
+extern "C" void host_riccati(int H, int n, int m, double reg, float lam_extra, const float* A,
+    const float* B, const float* cx, const float* cu, const float* cxx, const float* cuu,
+    const float* cux, const float* VxT, const float* VxxT, float* ks, float* Ks) {
+  std::vector<float> sm(kmanip::riccati_layout(n, m).total);
+  kmanip::riccati_sweep_block(0, 1, NoSync{}, H, n, m, (float)reg, lam_extra, A, B, cx, cu,
+                              cxx, cuu, cux, VxT, VxxT, ks, Ks, sm.data());
+}
+
+extern "C" void host_chol_solve(int m, int r, const float* Q, float lam, const float* RHS,
+    float* X) {
+  std::vector<float> S(m * m), dsc(m), piv(m), keep(m);
+  kmanip::chol_solve_dropping(0, 1, NoSync{}, m, r, Q, lam, RHS, X, S.data(), dsc.data(),
+                              piv.data(), keep.data());
+}
 """
 
 
@@ -260,10 +331,21 @@ def host_kernel(tmp_path_factory):
         check=True, capture_output=True, timeout=120,
     )
     so = ctypes.CDLL(str(lib))
-    so.host_substep.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [
+    P = ctypes.c_void_p
+    so.host_substep.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [
         ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int
-    ] + [ctypes.c_void_p] * 10
+    ] + [P] * 10
     so.host_substep.restype = ctypes.c_int
+    so.host_rollout_pick.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_double] + [
+        ctypes.c_int] * 5 + [P] * 5
+    so.host_rollout_pick.restype = ctypes.c_int
+    so.host_rollout_feedback.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_double] + [
+        ctypes.c_int] * 3 + [P] * 11
+    so.host_rollout_feedback.restype = ctypes.c_int
+    so.host_riccati.argtypes = [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_float] + [P] * 11
+    so.host_riccati.restype = None
+    so.host_chol_solve.argtypes = [ctypes.c_int] * 2 + [P, ctypes.c_float, P, P]
+    so.host_chol_solve.restype = None
     return so
 
 
@@ -286,3 +368,86 @@ def test_kernel_source_matches_plain_on_host(host_kernel, name, dt, implicit):
                                                    *(_t(a) for a in (q, v, c, cube)))
     assert plain[3].any()
     _assert_substep_outputs(out, [x.numpy() for x in plain])
+
+
+def _ptr(a):
+    return a.ctypes.data
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+def test_rollout_kernel_sources_match_plain_on_host(host_kernel, name):
+    """csrc/rollout.cuh on the host: the pick-cost rollout (K2) against
+    `rollout_pick_costs_reference` (H=3 totals at 1e-3, as
+    tests/test_torch_mppi.py holds the H=3 rollout), and the feedback
+    rollout (K3) against `rollout_feedback_reference` (us 2e-5 / 1e-4, xs
+    5e-4 / 1e-3, tests/test_pallas.py:377-380)."""
+    m = from_numpy_model(jax_get_model(name))
+    nq, nu, T = m.nq, m.nu, len(m.fingertips)
+    mf, mi = substep_cuda.pack_model(m)
+    rng = np.random.RandomState(9)
+    s0 = init_state(m, cube_pos=np.array([0.25, 0.5, 0.62]), device="cpu")
+    start = torch.cat([s0.qpos, s0.qvel, s0.cube_pos, s0.cube_quat, s0.cube_linvel,
+                       s0.cube_angvel]).numpy()
+    K, H = 6, 3
+    U = (m.home_qpos[:nu] + 0.1 * rng.randn(K, H, nu)).astype(np.float32)
+    spec = rollout_pick_cuda.PickCostSpec(use_left=T > 2)
+    spec_f, spec_i = rollout_pick_cuda.spec_arrays(m, spec)
+    for dt, n_sub in ((0.02, 1), (0.002, 2)):
+        cost = np.zeros(K, np.float32)
+        assert host_kernel.host_rollout_pick(
+            nq, T, _ptr(mf), _ptr(mi), dt, 1, 1, n_sub, K, H, _ptr(spec_f), _ptr(spec_i),
+            _ptr(U), _ptr(start), _ptr(cost)) == 0
+        want = rollout_pick_cuda.rollout_pick_costs_reference(
+            m, torch.as_tensor(U), s0, spec, n_substeps=n_sub, dt=dt).numpy()
+        _close(cost, want, 1e-3, f"pick dt={dt}")
+
+    n, B, H = 2 * nq, 3, 4
+    t = model_tensors(m, "cpu")
+    x0 = start[:n].copy()
+    cube0 = start[n:].copy()
+    xs_nom = (x0[None] + 0.02 * rng.randn(H, n)).astype(np.float32)
+    us_nom = (m.home_qpos[:nu] + 0.05 * rng.randn(H, nu)).astype(np.float32)
+    ks = (0.03 * rng.randn(H, nu)).astype(np.float32)
+    Ks = (0.05 * rng.randn(H, nu, n)).astype(np.float32)
+    alphas = np.array([0.0, 0.3, 1.0], np.float32)
+    lo, hi = t.ctrl_lo.numpy(), t.ctrl_hi.numpy()
+    xs = np.zeros((B, H, n), np.float32)
+    us = np.zeros((B, H, nu), np.float32)
+    assert host_kernel.host_rollout_feedback(
+        nq, T, _ptr(mf), _ptr(mi), 0.02, 1, B, H, *(_ptr(a) for a in (
+            alphas, x0, cube0, xs_nom, us_nom, ks, Ks, lo, hi, xs, us))) == 0
+    wxs, wus = rollout_feedback_cuda.rollout_feedback_reference(
+        m, *(torch.as_tensor(a) for a in (x0, cube0, xs_nom, us_nom, ks, Ks, alphas)))
+    np.testing.assert_allclose(us, wus.numpy(), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(xs, wxs.numpy(), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("H,n,m,indefinite", [(5, 20, 10, False), (6, 7, 3, True)])
+@pytest.mark.parametrize("lam_extra", [0.0, 1e-3])
+def test_riccati_kernel_source_matches_plain_on_host(host_kernel, H, n, m, indefinite,
+                                                     lam_extra):
+    """csrc/riccati.cuh run with one thread and a no-op barrier against
+    `riccati_sweep_reference`: both float32, summed in other orders, held
+    at 1e-4 of the largest gain (each is within ~1e-5 of float64)."""
+    prob = riccati_cuda.random_problem(4, H, n, m, indefinite)
+    ks = np.zeros((H, m), np.float32)
+    Ks = np.zeros((H, m, n), np.float32)
+    host_kernel.host_riccati(H, n, m, 1e-6, lam_extra, *(_ptr(a) for a in prob),
+                             _ptr(ks), _ptr(Ks))
+    wks, wKs = riccati_cuda.riccati_sweep_reference(*(torch.as_tensor(a) for a in prob), 1e-6,
+                                                    lam_extra=lam_extra)
+    for g, w in ((ks, wks.numpy()), (Ks, wKs.numpy())):
+        assert np.isfinite(g).all()
+        _close(g, w, 1e-4 * np.abs(w).max())
+
+    # the solve on its own drops the vanishing pivots of a singular matrix
+    rng = np.random.RandomState(2)
+    v = rng.randn(5, 3)
+    Q = (v @ v.T).astype(np.float32)
+    RHS = rng.randn(5, 4).astype(np.float32)
+    X = np.zeros((5, 4), np.float32)
+    host_kernel.host_chol_solve(5, 4, _ptr(Q), 0.0, _ptr(RHS), _ptr(X))
+    want = riccati_cuda.chol_solve_dropping(torch.as_tensor(Q), torch.as_tensor(RHS),
+                                            torch.tensor(0.0)).numpy()
+    assert np.all(X[3:] == 0.0)
+    _close(X, want, 1e-4 * np.abs(want).max())

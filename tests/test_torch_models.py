@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from gym_kmanip_tpu import constants as jk
 from gym_kmanip_tpu.models import get_model as jax_get_model
@@ -89,3 +90,27 @@ def test_model_tensors_cached_per_device():
     np.testing.assert_array_equal(t.kp_full.numpy()[: m.nu],
                                   m.actuator_kp.astype(np.float32))
     assert t.tip_right.tolist() == [tip.side == "r" for tip in m.fingertips]
+
+
+def test_entry_points_default_to_the_card():
+    """init_state, state_from_numpy and init_mppi put their tensors on the
+    card unless the caller passes another device; with no card they raise
+    rather than fall back to the CPU."""
+    import inspect
+
+    from gym_kmanip_torch.dynamics.state import init_state, state_from_numpy
+    from gym_kmanip_torch.mpc.mppi import MPPIConfig, init_mppi
+
+    for fn in (init_state, state_from_numpy, init_mppi):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    m = get_model("solo_arm")
+    on_cpu = init_state(m, device="cpu")
+    calls = (lambda: init_state(m), lambda: state_from_numpy(on_cpu),
+             lambda: init_mppi(m, MPPIConfig(horizon=2)).nominal)
+    for call in calls:
+        if torch.cuda.is_available():
+            out = call()
+            assert (out.qpos if hasattr(out, "qpos") else out).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()

@@ -2,8 +2,10 @@
 
 Inputs are made with numpy from a seed; the MPPI noise is JAX's own draw
 (its key split and `sample_noise`), injected into the port's solve.
-Tolerances are those of tests/test_pallas.py: rollout totals 1e-5 at H=1
-and 1e-3 at H=3; u0 1e-5, J 1e-4, nominal 1e-5.
+Tolerances are those of tests/test_pallas.py: rollout totals 1e-5 at H=1,
+1e-3 at H=3 and 1e-4 at H=3 with two 2 ms substeps; u0 1e-5, J 1e-4,
+nominal 1e-5. The fused pick-cost rollout (K2) runs its plain version here,
+on CPU tensors; tests/test_torch_cuda.py holds the kernel to it.
 """
 
 import jax
@@ -17,12 +19,14 @@ from gym_kmanip_tpu.mpc import mppi as jmppi
 from gym_kmanip_tpu.mpc.cost import CostParams as JCostParams
 from gym_kmanip_tpu.mpc.cost import cube_pick_cost as jcube_pick_cost
 from gym_kmanip_tpu.mpc.rollout import rollout_with_traj as jrollout_with_traj
+from gym_kmanip_tpu.ops.pallas_substep import PickCostSpec as JPickCostSpec
 
 from gym_kmanip_torch.dynamics.state import state_from_numpy
 from gym_kmanip_torch.models import from_numpy_model
 from gym_kmanip_torch.mpc import mppi
 from gym_kmanip_torch.mpc.cost import CostParams, cube_pick_cost
 from gym_kmanip_torch.mpc.rollout import rollout
+from gym_kmanip_torch.ops import rollout_pick_cuda
 
 torch.set_num_threads(1)
 
@@ -45,23 +49,66 @@ def _close(got, want, atol, msg=""):
                                atol=atol, rtol=0, err_msg=msg)
 
 
-def test_rollout_totals_match_jax(solo):
-    """One JAX program gives both the H=3 totals and the per-step costs,
-    whose first column is the H=1 total."""
+def _rollout_totals(solo, dt, n_substeps):
+    """The JAX H=3 totals and per-step costs (whose first column is the H=1
+    total) of seeded sequences, and the port's `rollout` and fused-rollout
+    wrapper (on CPU tensors, that same rollout) on them."""
     jm, m, jcost, cost = solo
     rng = np.random.RandomState(3)
     U = (jm.home_qpos[: jm.nu] + 0.1 * rng.randn(K, H, jm.nu)).astype(np.float32)
     js0 = jinit_state(jm)
     total, _, steps = jax.jit(jax.vmap(
-        lambda u: jrollout_with_traj(jm, js0, u, jcost)
+        lambda u: jrollout_with_traj(jm, js0, u, jcost, n_substeps=n_substeps, dt=dt)
     ))(U)
-
-    s0 = state_from_numpy(js0)
-    got1, _ = rollout(m, s0, torch.as_tensor(U[:, :1]), cost)
-    got3, final = rollout(m, s0, torch.as_tensor(U), cost)
-    _close(got1, np.asarray(steps)[:, 0], 1e-5, "H=1")
-    _close(got3, total, 1e-3, "H=3")
+    s0 = state_from_numpy(js0, device="cpu")
+    kw = dict(n_substeps=n_substeps, dt=dt)
+    got1, _ = rollout(m, s0, torch.as_tensor(U[:, :1]), cost, **kw)
+    got3, final = rollout(m, s0, torch.as_tensor(U), cost, **kw)
     assert final.qpos.shape == (K, m.nq)
+    before = rollout_pick_cuda.rollout_pick_costs.launches
+    fused1 = rollout_pick_cuda.rollout_pick_costs(m, torch.as_tensor(U[:, :1]), s0, **kw)
+    fused3 = rollout_pick_cuda.rollout_pick_costs(m, torch.as_tensor(U), s0, **kw)
+    assert rollout_pick_cuda.rollout_pick_costs.launches == before
+    return np.asarray(steps)[:, 0], np.asarray(total), (got1, fused1), (got3, fused3)
+
+
+def test_rollout_totals_match_jax(solo):
+    want1, want3, got1, got3 = _rollout_totals(solo, 0.02, 1)
+    for g in got1:
+        _close(g, want1, 1e-5, "H=1")
+    for g in got3:
+        _close(g, want3, 1e-3, "H=3")
+
+
+def test_rollout_totals_at_env_fidelity_match_jax(solo):
+    """n_substeps=2 at dt=0.002 (tests/test_pallas.py:252-267)."""
+    want1, want3, got1, got3 = _rollout_totals(solo, 0.002, 2)
+    for g in got1:
+        _close(g, want1, 1e-5, "H=1")
+    for g in got3:
+        _close(g, want3, 1e-4, "H=3")
+
+
+def test_pick_cost_spec_defaults_match_cost_params():
+    spec, params = rollout_pick_cuda.PickCostSpec(), CostParams()
+    for f in ("w_vel", "w_grip_dist", "w_touch", "w_lift", "w_ctrl"):
+        assert getattr(spec, f) == getattr(params, f) == getattr(JPickCostSpec(), f), f
+    assert (spec.use_right, spec.use_left) == (True, False)
+
+
+def test_fused_pick_solver_matches_plain_mppi(solo):
+    """make_fused_pick_solver against make_mppi_solver on one injected
+    noise draw (tests/test_pallas.py:310-314 tolerances)."""
+    jm, m, _, cost = solo
+    cfg = mppi.MPPIConfig(horizon=H, n_samples=K)
+    eps = torch.as_tensor((0.05 * np.random.RandomState(7).randn(K, H, m.nu)).astype(np.float32))
+    s0 = state_from_numpy(jinit_state(jm), device="cpu")
+    ms = mppi.init_mppi(m, cfg, seed=0, device="cpu")
+    ms_p, u0_p, J_p = mppi.make_mppi_solver(m, cfg, cost)(ms, s0, eps=eps)
+    ms_f, u0_f, J_f = mppi.make_fused_pick_solver(m, cfg)(ms, s0, eps=eps)
+    _close(u0_f, u0_p, 1e-5, "u0")
+    _close(J_f, J_p, 1e-4, "J")
+    _close(ms_f.nominal, ms_p.nominal, 1e-5, "nominal")
 
 
 def test_mppi_solve_matches_jax_with_injected_noise(solo):
@@ -75,16 +122,16 @@ def test_mppi_solve_matches_jax_with_injected_noise(solo):
     eps = jmppi.sample_noise(sub, K, H, jm.nu, jmppi.sigma_per_actuator(jm, jcfg.sigma),
                              jcfg.noise_beta)
 
-    ms = mppi.init_mppi(m, cfg, seed=0)
+    ms = mppi.init_mppi(m, cfg, seed=0, device="cpu")
     solve = mppi.make_mppi_solver(m, cfg, cost)
-    ms2, u0, J = solve(ms, state_from_numpy(js0), eps=torch.as_tensor(np.array(eps)))
+    ms2, u0, J = solve(ms, state_from_numpy(js0, device="cpu"), eps=torch.as_tensor(np.array(eps)))
     _close(u0, u0_j, 1e-5, "u0")
     _close(J, J_j, 1e-4, "J")
     _close(ms2.nominal, ms_j.nominal, 1e-5, "nominal")
     assert ms2.generator is ms.generator
 
     with pytest.raises(ValueError):
-        solve(ms, state_from_numpy(js0), eps=torch.zeros(K, H + 1, m.nu))
+        solve(ms, state_from_numpy(js0, device="cpu"), eps=torch.zeros(K, H + 1, m.nu))
 
 
 def test_noise_filter_and_sigma_match_jax(solo):

@@ -34,18 +34,28 @@ _SCRIPT = textwrap.dedent(
     from gym_kmanip_torch.dynamics import init_state, substep
     from gym_kmanip_torch.models import get_model
     from gym_kmanip_torch.mpc.cost import CostParams, cube_pick_cost
-    from gym_kmanip_torch.mpc.mppi import MPPIConfig, init_mppi, make_mppi_solver
+    from gym_kmanip_torch.mpc.cost import make_ee_tracking_cost_ilqr
+    from gym_kmanip_torch.mpc.mppi import (
+        MPPIConfig, init_mppi, make_fused_pick_solver, make_mppi_solver)
+    from gym_kmanip_torch.solvers.ilqr import ILQRConfig, make_ilqr_solver
 
     m = get_model("solo_arm")
-    s = init_state(m)
+    s = init_state(m, device="cpu")
     s2, (touch, xpos, xquat) = substep(m, s, 0.002)
     assert s2.qpos.shape == (m.nq,) and bool(torch.isfinite(s2.qvel).all())
 
     cfg = MPPIConfig(horizon=2, n_samples=4)
     params = CostParams()
     solve = make_mppi_solver(m, cfg, lambda st, aux, u: cube_pick_cost(m, st, aux, u, params))
-    ms, u0, J = solve(init_mppi(m, cfg, seed=0), s)
+    ms, u0, J = solve(init_mppi(m, cfg, seed=0, device="cpu"), s)
     assert u0.shape == (m.nu,) and bool(torch.isfinite(J))
+    ms, u0, J = make_fused_pick_solver(m, cfg)(init_mppi(m, cfg, seed=0, device="cpu"), s)
+    assert u0.shape == (m.nu,) and bool(torch.isfinite(J))
+
+    cost_xu, quad_xu = make_ee_tracking_cost_ilqr(m, [0.25, 0.55, 0.6])
+    icfg = ILQRConfig(horizon=2, n_iters=1, contact=False, reduced_state=True)
+    r = make_ilqr_solver(m, icfg, cost_xu, quad_xu=quad_xu)(s, s.ctrl.repeat(2, 1))
+    assert r.us.shape == (2, m.nu) and bool(torch.isfinite(r.cost_trace).all())
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
@@ -62,4 +72,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     ok, n_modules = proc.stdout.split()[-2:]
-    assert ok == "OK" and int(n_modules) >= 15
+    assert ok == "OK" and int(n_modules) >= 20

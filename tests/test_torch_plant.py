@@ -39,9 +39,9 @@ def test_control_step_matches_jax():
     ctrl = (jm.home_qpos[: jm.nu] + rng.randn(jm.nu) * 0.1).astype(np.float32)
     js2, jaux = jax.jit(lambda s, u: jcontrol_step(jm, s, u))(js, ctrl)
 
-    s = state_from_numpy(js)
+    s = state_from_numpy(js, device="cpu")
     s2, aux = engine.control_step(m, s, _t(ctrl))
-    want = state_to_numpy(state_from_numpy(js2))
+    want = state_to_numpy(state_from_numpy(js2, device="cpu"))
     _close(s2.qpos, want.qpos, 1e-5)
     _close(s2.qvel, want.qvel, 1e-4)
     for f in ("cube_pos", "cube_quat", "cube_linvel", "cube_angvel"):
