@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, and the script exits non-zero):
-  1. build:       compile the four CUDA libraries from gym_kmanip_torch/csrc,
-                  one nvcc each, all at once.
+  1. build:       compile the eight CUDA libraries from gym_kmanip_torch/csrc,
+                  one nvcc each, all at once; ptxas's registers, stack and
+                  spills of the kernels K5-K8.
   2. K1 substep:  at K=256, random solo-arm states from a seed, in MPC mode
                   (dt=0.02, implicit actuation) and env mode (dt=0.002,
                   explicit): the kernel against its plain PyTorch version
@@ -36,6 +37,27 @@ Phases (any failure raises, and the script exits non-zero):
                   versions on the first iteration's real inputs, K4 also on
                   seeded problems at solo and torso widths; their times.
                   The torso at H=100, once.
+  8. staged MPPI: the staged substep route (engine.substep_staged: K5 FK +
+                  RNEA, K6 contacts, K7 SPD solve, torch glue between) at
+                  H=50, K=256 through make_mppi_solver: K5, K6 and K7 against
+                  their plain versions on the inputs of the first staged
+                  substep of a solve (frames 1e-5, bias and forces 1e-4, flags
+                  equal; the solve 1e-4 relative, also against float64) and
+                  on seeded torso inputs (K7: a seeded n=20 problem), their
+                  times beside the plain versions' (K7 also beside
+                  torch.linalg.solve); 20 solves with the launch counts per
+                  solve checked (K5 50, K6 50, K7 200, K1 0), the staged route
+                  against the plain route on one injected draw at H=4 (u0
+                  1e-5, J 1e-4, nominal 1e-5), solves/s beside the K1 and
+                  fused routes, and a torch.profiler breakdown of 2 solves
+                  (device busy, kernel launches, the largest kernels).
+  9. K8 floor:    the Riccati step's floor experiment
+                  (gym_kmanip_torch.tools.exp_sweep_floor) at H=100, n=40,
+                  m=20: each of its seven variants against its plain version
+                  (1e-4 of the largest gain), then ms per sweep of each beside
+                  K4's at the same widths.
+Only the staged route moves the K5, K6 and K7 counters: every other phase,
+and every plain-version call, leaves them as they were.
 The kernels line, then the card's name and power limit (nvidia-smi), then
 {"ok": true, "device": {...}}. Exits non-zero without a GPU.
 """
@@ -52,6 +74,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
+from gym_kmanip_torch import constants  # noqa: E402
 from gym_kmanip_torch.dynamics import contacts, engine  # noqa: E402
 from gym_kmanip_torch.dynamics.state import init_state  # noqa: E402
 from gym_kmanip_torch.models import get_model, model_tensors  # noqa: E402
@@ -61,9 +84,12 @@ from gym_kmanip_torch.mpc.mppi import (  # noqa: E402
     MPPIConfig, init_mppi, make_fused_pick_solver, make_mppi_solver)
 from gym_kmanip_torch.mpc.rollout import rollout  # noqa: E402
 from gym_kmanip_torch.ops import _build, riccati_cuda, rollout_feedback_cuda  # noqa: E402
+from gym_kmanip_torch.ops import chol_solve_cuda, contacts_cuda, rnea_cuda  # noqa: E402
 from gym_kmanip_torch.ops import kinematics as kin  # noqa: E402
+from gym_kmanip_torch.ops import linalg, sweep_floor_cuda  # noqa: E402
 from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda  # noqa: E402
 from gym_kmanip_torch.solvers import ilqr  # noqa: E402
+from gym_kmanip_torch.tools import exp_sweep_floor  # noqa: E402
 from gym_kmanip_torch.utils import rotations as rot  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -80,7 +106,12 @@ WRAPPERS = {
     "K2": rollout_pick_cuda.rollout_pick_costs,
     "K3": rollout_feedback_cuda.rollout_feedback,
     "K4": riccati_cuda.riccati_sweep,
+    "K5": rnea_cuda.rnea_terms_batched,
+    "K6": contacts_cuda.contact_forces_batched,
+    "K7": chol_solve_cuda.cholesky_solve_batched,
+    "K8": sweep_floor_cuda.sweep,
 }
+STAGED = ("K5", "K6", "K7")  # launched by the staged substep route only
 
 
 def log(phase, msg):
@@ -109,6 +140,26 @@ def counts():
     return {name: w.launches for name, w in WRAPPERS.items()}
 
 
+def only(**nonzero):
+    """Launch counts with `nonzero` and every other kernel at 0."""
+    return {name: nonzero.get(name, 0) for name in WRAPPERS}
+
+
+def staged_counts():
+    return {name: WRAPPERS[name].launches for name in STAGED}
+
+
+def plain(fn, *args, **kwargs):
+    """A plain-version call that must launch none of the staged route's
+    kernels (the plain versions are built on `engine._substep_torch`)."""
+    before = staged_counts()
+    out = fn(*args, **kwargs)
+    if staged_counts() != before:
+        raise AssertionError(f"{fn.__name__} launched a staged kernel: {before} -> "
+                             f"{staged_counts()}")
+    return out
+
+
 def check(phase, what, err, tol):
     log(phase, f"{what}: max abs err {err:.3e} (tolerance {tol:.3e})")
     if not err <= tol:
@@ -125,26 +176,42 @@ def max_err(a, b):
 # cosine as one; comparisons and selects are not counted, a clamp is two.
 # Bytes: each input read once and each output written once.
 
+def rnea_flops(model):
+    """csrc/substep.cuh::rnea_rows for one rollout."""
+    nq = model.nq
+    hinge = np.asarray(model.jnt_type) == 0
+    f = int(np.sum(np.where(hinge, 188, 172)))  # FK + velocity recursion
+    f += 183 * nq  # COM loads: offsets, accelerations, world inertia
+    f += 17 * nq + 21 * (nq - 1)  # backward pass over the tree
+    return f
+
+
+def contact_flops(model):
+    """csrc/substep.cuh::contact_rows for one rollout."""
+    return 39 + 185 * len(model.fingertips) + 12 + 8 * 110  # tips vs cube, 8 corners vs table
+
+
+def chol_flops(n, n_solves=1):
+    """csrc/substep.cuh::chol_factor, then `n_solves` chol_solve."""
+    factor = sum(2 * j + 2 + (n - 1 - j) * (2 * j + 1) for j in range(n))
+    return factor + n_solves * 2 * n * n
+
+
 def substep_flops(model, contact):
     """csrc/substep.cuh::substep_core for one rollout."""
     nq, T, nu = model.nq, len(model.fingertips), model.nu
     anc = np.asarray(model.ancestors, bool)
-    hinge = np.asarray(model.jnt_type) == 0
-    f = 0
-    f += int(np.sum(np.where(hinge, 188, 172)))  # FK + velocity recursion
-    f += 183 * nq  # COM loads: offsets, accelerations, world inertia
-    f += 17 * nq + 21 * (nq - 1)  # backward pass over the tree
+    f = rnea_flops(model)
     f += 48 * T  # fingertip positions and velocities
     if contact:
-        f += 39 + 185 * T + 12 + 8 * 110  # tips vs cube, then 8 corners vs table
+        f += contact_flops(model)
     f += 8 * nq  # servo, damping, bias, implicit terms
     f += sum(18 * int(anc[t.parent].sum()) for t in model.fingertips)  # contact reactions
     for i in range(nq):  # mass matrix by COM Jacobians
         a = int(anc[i].sum())
         f += 33 + 45 * a + 13 * a * (a + 1) // 2
     f += 3 * nq  # diagonal terms
-    f += sum(2 * j + 2 + (nq - 1 - j) * (2 * j + 1) for j in range(nq))  # Cholesky
-    f += 4 * 2 * nq * nq  # one solve + 3 constraint solves
+    f += chol_flops(nq, n_solves=4)  # Cholesky, one solve + 3 constraint solves
     f += 3 * 25 * nq + 6 * nq + 120  # constraint sweeps, integration, cube
     return f
 
@@ -278,7 +345,7 @@ def phase_mppi(model):
     launches = counts()
     expected = n_solves * H * cfg.n_substeps * cfg.n_iters
     Js = torch.stack(Js)
-    if launches != {"K1": expected, "K2": 0, "K3": 0, "K4": 0}:
+    if launches != only(K1=expected):
         raise AssertionError(f"MPPI launches {launches}, expected {expected} of K1 only")
     if not bool(torch.isfinite(Js).all()) or u0.shape != (model.nu,):
         raise AssertionError("MPPI solve gave a non-finite cost or a wrong-shaped control")
@@ -400,7 +467,7 @@ def phase_fused_mppi(model, k1_rates):
         Js.append(J)
     torch.cuda.synchronize()
     launches = counts()
-    if launches != {"K1": 0, "K2": n_solves * cfg.n_iters, "K3": 0, "K4": 0}:
+    if launches != only(K2=n_solves * cfg.n_iters):
         raise AssertionError(f"fused MPPI launches {launches}, expected "
                              f"{n_solves * cfg.n_iters} of K2 only")
     if not bool(torch.isfinite(torch.stack(Js)).all()):
@@ -410,7 +477,7 @@ def phase_fused_mppi(model, k1_rates):
     rates, _ = solves_per_sec(solver, ms, sim_state)
     log("fused", f"fused route: {rate_line(rates)} x 20 solves; K1 route "
                  f"{statistics.median(k1_rates):.2f} (same run)")
-    return launches["K2"]
+    return launches["K2"], rates
 
 
 def ee_goal(model, s0):
@@ -509,7 +576,7 @@ def phase_ilqr(model):
     solve = ilqr.make_ilqr_solver(model, cfg, cost_xu, quad_xu=quad_xu)
     solve(s0, us)  # first call builds the cached tensors
     r, launches, _ = solve_checked("ilqr", model, cfg, cost_xu, quad_xu, solve, s0, us,
-                                {"K1": 10, "K2": 0, "K3": 11, "K4": 10})
+                                only(K1=10, K3=11, K4=10))
     rates = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -624,11 +691,307 @@ def phase_ilqr_torso():
     s0, goal, cost_xu, quad_xu, cfg, us = ilqr_setup(model, horizon)
     solve = ilqr.make_ilqr_solver(model, cfg, cost_xu, quad_xu=quad_xu)
     # nq = 20 > 12: the forward passes take B-batched K1 launches, not K3
-    expected = {"K1": 10 + horizon + 10 * horizon, "K2": 0, "K3": 0, "K4": 10}
+    expected = only(K1=10 + horizon + 10 * horizon, K4=10)
     r, _, seconds = solve_checked("torso", model, cfg, cost_xu, quad_xu, solve, s0, us,
                                   expected)
     log("torso", f"H={horizon} 10 iterations: {seconds:.3f} s for the first solve")
     log("torso", ee_line(ee_error_mm(model, s0, r.us, goal)))
+
+
+class Recorder:
+    """Records the arguments of call number `at` (from 0) of a module
+    function that the staged substep looks up at call time, and passes
+    every call on."""
+
+    def __init__(self, module, name, at):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.at, self.calls, self.args = at, 0, None
+
+    def __enter__(self):
+        def record(*args):
+            if self.calls == self.at:
+                self.args = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            self.calls += 1
+            return self.fn(*args)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def time_pair(fn, ref, n_kernel=200, n_plain=20):
+    ms = cuda_ms(fn, n_kernel)
+    plain_ms = cuda_ms(lambda: plain(ref), n_plain)
+    return ms, plain_ms
+
+
+def phase_staged_kernels(model, cost):
+    """K5, K6 and K7 against their plain versions on the inputs of a staged
+    substep of an MPPI solve (solo, K=256), and on seeded torso inputs;
+    their times and bounds. The solve starts with the cube between the
+    fingertips, and the inputs are those of its third substep: from rest
+    the first substep has no contact, the third has fingertip and table
+    contacts."""
+    cfg = MPPIConfig(horizon=H, n_samples=K)
+    home = torch.as_tensor(model.home_qpos, dtype=torch.float32, device=DEV)
+    tips = engine._tips_from_frames(model, *kin.fk(model, home)[:2])
+    sim_state = init_state(model, cube_pos=tips.mean(0).cpu().numpy(), device=DEV)
+    solver = make_mppi_solver(model, cfg, cost, substep_fn=engine.substep_staged)
+    with Recorder(kin, "rnea_terms_fast", 2) as r5, \
+            Recorder(contacts, "contact_forces_fast", 2) as r6, \
+            Recorder(linalg, "batch_aware_cholesky_solve", 2 * (1 + constants.CONSTRAINT_ITERS)) \
+            as r7:
+        solver(init_mppi(model, cfg, seed=0, device=DEV), sim_state)
+    torch.cuda.synchronize()
+    rows = {}
+
+    # K5: frames 1e-5, bias 1e-4 (tests/test_pallas.py:85-88)
+    def k5_check(tag, m, q, v):
+        got = rnea_cuda.rnea_terms_batched(m, q, v)
+        want = plain(rnea_cuda.rnea_terms_batched_reference, m, q, v)
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        for name, e, tol in zip(("xpos", "xquat", "axis", "bias"), errs, (1e-5, 1e-5, 1e-5, 1e-4)):
+            check("K5", f"{tag}: {name}", e, tol)
+        k_ = q.shape[0]
+        ms, plain_ms = time_pair(lambda: rnea_cuda.rnea_terms_batched(m, q, v),
+                                 lambda: rnea_cuda.rnea_terms_batched_reference(m, q, v))
+        b = bound(k_ * rnea_flops(m), 4 * k_ * (2 * m.nq + 11 * m.nq))
+        log("K5", f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms "
+                  f"({b[1]}): {rnea_flops(m)} operations per rollout")
+        return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound=b)
+
+    # K6: forces 1e-4, flags equal (tests/test_pallas.py:135-141)
+    def k6_check(tag, m, args):
+        got = contacts_cuda.contact_forces_batched(m, *args)
+        want = plain(contacts_cuda.contact_forces_batched_reference, m, *args)
+        errs = []
+        for name in ("force_cube", "torque_cube", "tip_forces"):
+            errs.append(max_err(getattr(got, name), getattr(want, name)))
+            check("K6", f"{tag}: {name}", errs[-1], 1e-4)
+        for name in ("touch_tip", "touch_table"):
+            if not torch.equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"K6 {tag}: {name} flags differ")
+        log("K6", f"{tag}: touching tip {float(want.touch_tip.float().mean()):.3f}, table "
+                  f"{float(want.touch_table.float().mean()):.3f}")
+        k_, T = args[0].shape[0], len(m.fingertips)
+        ms, plain_ms = time_pair(lambda: contacts_cuda.contact_forces_batched(m, *args),
+                                 lambda: contacts_cuda.contact_forces_batched_reference(m, *args))
+        b = bound(k_ * contact_flops(m), k_ * (4 * (6 * T + 13 + 6 + 3 * T) + T + 1))
+        log("K6", f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms "
+                  f"({b[1]}): {contact_flops(m)} operations per rollout")
+        return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound=b)
+
+    # K7: 1e-4 relative to the largest entry, against the plain version and
+    # against float64
+    def k7_check(tag, M, b):
+        got = chol_solve_cuda.cholesky_solve_batched(M, b)
+        want = plain(chol_solve_cuda.cholesky_solve_batched_reference, M, b)
+        want64 = torch.linalg.solve(M.double(), b.double())
+        scale = float(want64.abs().max())
+        err = max_err(got, want)
+        check("K7", f"{tag}: kernel vs plain (solutions up to {scale:.3g})", err, 1e-4 * scale)
+        check("K7", f"{tag}: kernel vs float64", max_err(got.double(), want64), 1e-4 * scale)
+        k_, n = b.shape
+        ms, plain_ms = time_pair(lambda: chol_solve_cuda.cholesky_solve_batched(M, b),
+                                 lambda: chol_solve_cuda.cholesky_solve_batched_reference(M, b))
+        library_ms = cuda_ms(lambda: torch.linalg.solve(M, b), 200)
+        bnd = bound(k_ * chol_flops(n), 4 * k_ * (n * (n + 1) // 2 + 2 * n))
+        log("K7", f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.solve "
+                  f"{library_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}): {chol_flops(n)} "
+                  f"operations per item (the lower triangle read)")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound=bnd)
+
+    # the third staged substep's real inputs (solo, K=256)
+    q, v = (a.contiguous() for a in r5.args[1:3])
+    rows["K5"] = k5_check(f"staged substep 3, K={q.shape[0]}", model, q, v)
+    args6 = tuple(a.contiguous() for a in r6.args[1:])
+    rows["K6"] = k6_check(f"staged substep 3, K={q.shape[0]}", model, args6)
+    M, b = (a.contiguous() for a in r7.args)
+    rows["K7"] = k7_check(f"staged substep 3 (M + h B, tau), K={b.shape[0]} n={b.shape[1]}",
+                          M, b)
+
+    # seeded torso inputs (nq = 20, 4 fingertips) and a seeded n = 20 SPD problem
+    torso = get_model("torso")
+    tq, tv, _, cube = (torch.as_tensor(a, device=DEV)
+                       for a in substep_cuda.random_inputs(torso, K, seed=0))
+    rows["K5"]["torso"] = k5_check(f"torso seeded K={K}", torso, tq, tv)
+    xp, xq, ax, _ = kin.rnea_terms(torso, tq, tv)
+    tips, tip_vel, _, _ = engine._tip_state(torso, xp, xq, ax, tv)
+    args6 = tuple(a.contiguous() for a in (tips, tip_vel, cube[:, :3], cube[:, 3:7], cube[:, 7:10],
+                                            cube[:, 10:]))
+    rows["K6"]["torso"] = k6_check(f"torso seeded K={K}", torso, args6)
+    rng = np.random.RandomState(0)
+    A = rng.randn(K, 20, 20)
+    M20 = torch.as_tensor(A @ A.transpose(0, 2, 1) / 20 + np.eye(20), dtype=torch.float32,
+                          device=DEV)
+    b20 = torch.as_tensor(rng.randn(K, 20), dtype=torch.float32, device=DEV)
+    rows["K7"]["n20"] = k7_check(f"seeded SPD K={K} n=20", M20, b20)
+    for name in STAGED:
+        for key in ("", "torso", "n20"):
+            r = rows[name].get(key) if key else rows[name]
+            if r is not None:
+                r["bound_ms"], r["bound_by"] = r["bound"]
+    return rows
+
+
+def phase_staged_mppi(model, cost, k1_rates, fused_rates):
+    """The staged route through make_mppi_solver: launches per solve, the
+    plain route on one injected draw, solves/s."""
+    cfg = MPPIConfig(horizon=H, n_samples=K)
+    sim_state = init_state(model, device=DEV)
+    solver = make_mppi_solver(model, cfg, cost, substep_fn=engine.substep_staged)
+    ms = init_mppi(model, cfg, seed=0, device=DEV)
+    ms, u0, J = solver(ms, sim_state)
+    torch.cuda.synchronize()
+    reset_counts()
+    n_solves, Js = 20, []
+    for _ in range(n_solves):
+        ms, u0, J = solver(ms, sim_state)
+        Js.append(J)
+    torch.cuda.synchronize()
+    launches = counts()
+    steps = n_solves * H * cfg.n_substeps * cfg.n_iters
+    expected = only(K5=steps, K6=steps,
+                    K7=steps * (1 + constants.CONSTRAINT_ITERS))
+    if launches != expected:
+        raise AssertionError(f"staged MPPI launches {launches}, expected {expected}")
+    if not bool(torch.isfinite(torch.stack(Js)).all()) or u0.shape != (model.nu,):
+        raise AssertionError("staged MPPI gave a non-finite cost or a wrong-shaped control")
+    log("staged", f"H={H} K={K}: {n_solves} solves, launches {launches} "
+                  f"(per solve K5 {launches['K5'] // n_solves}, K6 {launches['K6'] // n_solves}, "
+                  f"K7 {launches['K7'] // n_solves}, K1 0)")
+
+    small = cfg._replace(horizon=4)
+    eps = torch.randn((K, 4, model.nu), generator=torch.Generator(DEV).manual_seed(1),
+                      device=DEV) * 0.05
+    ms_small = init_mppi(model, small, seed=0, device=DEV)
+    ms_s, u0_s, J_s = make_mppi_solver(model, small, cost, substep_fn=engine.substep_staged)(
+        ms_small, sim_state, eps=eps)
+    ms_p, u0_p, J_p = plain(make_mppi_solver(model, small, cost, substep_fn=engine._substep_torch),
+                            ms_small, sim_state, eps=eps)
+    check("staged", "staged route vs plain route at H=4: u0", max_err(u0_s, u0_p), 1e-5)
+    check("staged", "staged route vs plain route at H=4: J", max_err(J_s, J_p), 1e-4)
+    check("staged", "staged route vs plain route at H=4: nominal",
+          max_err(ms_s.nominal, ms_p.nominal), 1e-5)
+
+    rates, ms = solves_per_sec(solver, ms, sim_state)
+    log("staged", f"staged route: {rate_line(rates)} x 20 solves; K1 route "
+                  f"{statistics.median(k1_rates):.2f}, fused route "
+                  f"{statistics.median(fused_rates):.2f} (same run)")
+    busy, n_launch, by_kernel = device_profile(lambda: solver(ms, sim_state), 2)
+    wall = 1e3 / statistics.median(rates)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:5]
+    log("staged", f"profile of 2 solves: device busy {busy:.3f} ms per solve ({busy / wall:.1%} "
+                  f"of the unprofiled {wall:.1f} ms), {n_launch:.0f} kernel launches per solve; "
+                  f"largest kernels (ms per solve): "
+                  + ", ".join(f"{name[:40]} {t:.3f}" for name, (t, _) in top))
+    # device time per launch of the staged kernels, without the host's
+    # launch gaps that bound the CUDA-event times of back-to-back calls
+    profiled = {}
+    for name, tag in (("K5", "rnea_kernel"), ("K6", "contacts_kernel"),
+                      ("K7", "chol_solve_kernel")):
+        t, n = map(sum, zip(*(v for key, v in by_kernel.items() if tag in key)))
+        profiled[name] = t / n
+        log("staged", f"{name} ({tag}): {t:.3f} ms per solve over {n:.0f} launches, "
+                      f"{1e3 * t / n:.2f} us per launch on the device")
+    return launches, profiled
+
+
+def device_profile(fn, n):
+    """torch.profiler over n calls of fn: device-busy ms per call, kernel
+    launches per call, and {kernel name: (device ms, launches) per call}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    kernels = {e.key: (e.self_device_time_total / 1e3 / n, e.count / n) for e in rows
+               if "memcpy" not in e.key.lower() and "memset" not in e.key.lower()}
+    if busy <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    return busy, sum(c for _, c in kernels.values()), kernels
+
+
+def floor_flops(variant, n, m):
+    """csrc/sweep_floor.cuh: one step of `variant`."""
+    Z, N1 = n + m, n + 1
+    if variant in ("loop", "load1"):
+        return n * N1 + 1
+    if variant == "load1nostore":
+        return n * N1 + 1 + m * N1
+    if variant == "mem":
+        return n * N1 + 6 + m * N1
+    f = Z * N1 * 2 * n  # GW
+    f += (n * n + m * n + m * m) * (2 * n + 1) + Z  # Q blocks, qv
+    f += m + m * N1 + m * N1 * (2 * m + 2) + n * N1 * (4 * m + 2)  # gains, V, value update
+    if variant in ("trans", "gersh"):
+        f += 2 * m * m + 2 * n * n  # symmetrize Quu and Vxx
+    if variant == "gersh":
+        f += 3 * m * m + 6 * m  # row stats, lift
+    return f
+
+
+def floor_bytes(variant, h, n, m):
+    """Each input the variant reads, once, and both outputs."""
+    Z, N1 = n + m, n + 1
+    f = n * N1 + h * m * N1  # WT, then ks and Ks
+    if variant in ("load1", "load1nostore"):
+        f += h
+    elif variant == "mem":
+        f += h * (4 + m + m * n)
+    elif variant != "loop":
+        f += h * (n * Z + n + m + n * n + m * m + m * n)
+    return 4 * f
+
+
+def phase_sweep_floor():
+    """Each variant of the floor experiment against its plain version at
+    the experiment's widths, then the tool's timings beside K4's."""
+    h, n, m = 100, exp_sweep_floor.N, exp_sweep_floor.M
+    inputs = [torch.as_tensor(a, device=DEV) for a in sweep_floor_cuda.random_inputs(h, n, m)]
+    rows = {}
+    for v in sweep_floor_cuda.VARIANTS:
+        got = sweep_floor_cuda.sweep(v, *inputs)
+        want = plain(sweep_floor_cuda.sweep_reference, v, *inputs)
+        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+        check("K8", f"{v}: kernel vs plain ({h}, {n}, {m}) (gains up to {scale:.3g})", err,
+              1e-4 * scale)
+        plain_ms = cuda_ms(lambda v=v: sweep_floor_cuda.sweep_reference(v, *inputs), 2)
+        b = bound(h * floor_flops(v, n, m), floor_bytes(v, h, n, m))
+        rows[v] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+    reset_counts()
+    times, k4_ms = exp_sweep_floor.measure(sweep_floor_cuda.VARIANTS, h, DEV)
+    launches = counts()["K8"]
+    if launches < len(sweep_floor_cuda.VARIANTS):
+        raise AssertionError(f"the floor tool launched K8 {launches} times")
+    for v, ms in times.items():
+        rows[v]["ms"] = ms
+        log("K8", f"{v:13s} {ms:8.4f} ms/sweep ({ms / k4_ms:6.1%} of K4 {k4_ms:.4f} ms), plain "
+                  f"{rows[v]['plain_ms']:.2f} ms, bound {rows[v]['bound_ms']:.6f} ms "
+                  f"({rows[v]['bound_by']}), max_abs_err {rows[v]['max_abs_err']:.3e}")
+    row = dict(rows["gersh"], launches=launches, k4_ms=k4_ms,
+               variants={v: r for v, r in rows.items() if v != "gersh"})
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    return row
+
+
+def strip(r):
+    """A nested row for the kernels line: its bound as bound_ms and
+    bound_by, nothing else that is not a number, a string or a row."""
+    if not isinstance(r, dict):
+        return r
+    r = dict(r)
+    if "bound" in r:
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+    return {k_: strip(v) for k_, v in r.items()}
 
 
 def main():
@@ -639,19 +1002,30 @@ def main():
     log("device", f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
                   f"CUDA {torch.version.cuda}")
 
-    mods = (substep_cuda, rollout_pick_cuda, rollout_feedback_cuda, riccati_cuda)
+    mods = (substep_cuda, rollout_pick_cuda, rollout_feedback_cuda, riccati_cuda, rnea_cuda,
+            contacts_cuda, chol_solve_cuda, sweep_floor_cuda)
     t0 = time.perf_counter()
     ready = _build.build_libraries([m.LIBRARY for m in mods])
     for m in mods:
         m._library()
-    log("build", f"4 libraries built in parallel and loaded in {time.perf_counter() - t0:.2f} s "
+    log("build", f"{len(mods)} libraries built in parallel and loaded in "
+                 f"{time.perf_counter() - t0:.2f} s "
                  f"({', '.join(f'{k} {v:.2f} s' for k, v in ready.items())})")
+    for m in mods[4:]:
+        for kernel, (regs, stack, spills) in _build.ptxas_report(*m.LIBRARY).items():
+            log("build", f"ptxas {kernel}: {regs} registers, {stack} bytes stack, "
+                         f"{spills} bytes spilled")
+
+    def no_staged_launch(phase):
+        if any(staged_counts().values()):
+            raise AssertionError(f"{phase} launched a staged kernel: {staged_counts()}")
 
     k1 = phase_substep(model)
     k1["launches"], k1_rates = phase_mppi(model)
     phase_closed_loop(model)
     k2 = phase_pick_kernel(model)
-    k2["launches"] = phase_fused_mppi(model, k1_rates)
+    k2["launches"], fused_rates = phase_fused_mppi(model, k1_rates)
+    no_staged_launch("the K1, K2 and closed-loop phases")
     ilqr_launches, k1_ilqr, k3, k4 = phase_ilqr(model)
     k3["launches"], k4["launches"] = ilqr_launches["K3"], ilqr_launches["K4"]
     # K1 runs on two main paths: the MPPI solve (K=256, with contact; the
@@ -660,6 +1034,15 @@ def main():
     k1["ilqr"] = dict(k1_ilqr, bound_ms=k1_ilqr["bound"][0], bound_by=k1_ilqr["bound"][1])
     del k1["ilqr"]["bound"]
     phase_ilqr_torso()
+    no_staged_launch("the iLQR phases")
+    staged = phase_staged_kernels(model, pick_cost(model))
+    launches, profiled = phase_staged_mppi(model, pick_cost(model), k1_rates, fused_rates)
+    for name in STAGED:
+        staged[name]["launches"] = launches[name]
+        staged[name]["profiled_ms"] = profiled[name]
+    reset_counts()
+    k8 = phase_sweep_floor()
+    no_staged_launch("the K8 phase")
 
     rows = [
         ("substep_batched", "substep.cu", "gym_kmanip_tpu/ops/pallas_substep.py:404", k1),
@@ -667,24 +1050,36 @@ def main():
         ("rollout_feedback", "rollout_feedback.cu", "gym_kmanip_tpu/ops/pallas_substep.py:581",
          k3),
         ("riccati_sweep", "riccati.cu", "gym_kmanip_tpu/ops/pallas_riccati.py:678", k4),
+        ("rnea_terms_batched", "rnea.cu", "gym_kmanip_tpu/ops/pallas_dynamics.py:219",
+         staged["K5"]),
+        ("contact_forces_batched", "contacts.cu", "gym_kmanip_tpu/ops/pallas_contacts.py:215",
+         staged["K6"]),
+        ("cholesky_solve_batched", "chol_solve.cu", "gym_kmanip_tpu/ops/pallas_linalg.py:57",
+         staged["K7"]),
+        ("sweep_floor", "sweep_floor.cu", "tools/exp_sweep_floor.py:102", k8),
     ]
+    for r in (k1, k2, k3, k4):
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
     for name, _, _, r in rows:
         if r["launches"] < 1:
             raise AssertionError(f"{name} was not launched on its main path")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # the row's own numbers are the main path's; a second path or shape
+    # (K1's iLQR probes, the torso, K7 at n = 20, K8's other variants) sits
+    # under a key of its own, as does the device time per launch that the
+    # profiler read on the staged route (profiled_ms)
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    extra = ("ilqr", "torso", "n20", "variants", "k4_ms", "profiled_ms")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"gym_kmanip_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": r["launches"],
-        "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound"][0],
-        "bound_by": r["bound"][1],
-        "library_ms": None,  # no single PyTorch call computes any of these
-        **({"ilqr": r["ilqr"]} if "ilqr" in r else {}),
+        **{key: r[key] for key in keys},
+        # torch.linalg.solve computes K7's function; no single PyTorch call
+        # computes any of the others
+        "library_ms": r.get("library_ms"),
+        **{key: strip(r[key]) for key in extra if key in r},
     } for name, src, replaces, r in rows]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

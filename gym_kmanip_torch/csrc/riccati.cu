@@ -24,10 +24,6 @@
 
 namespace kmanip {
 
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-
 constexpr int RICCATI_THREADS = 256;
 constexpr int MAX_SHARED_BYTES = 232448;  // 227 KB, the H100's per-block limit
 

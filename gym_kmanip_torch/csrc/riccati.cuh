@@ -23,6 +23,27 @@ namespace kmanip {
 
 constexpr float PIVOT_FLOOR = 1e-5f;  // pivots of the equilibrated matrix at or below are dropped
 
+#ifdef __CUDACC__
+// The block barrier the sweeps are written against (the host harness
+// passes a no-op).
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+#endif
+
+// out[r * ldo + c] = sum_i A[i * lda + r] * B[i * ldb + c] for r < R, c < C,
+// i < I (A^T B), in block-shared memory: one output element per thread at a
+// time, its dot product summed in order. The caller places the barrier.
+__device__ inline void block_mm_tn(int tid, int nthr, int R, int C, int I, const float* A,
+                                   int lda, const float* B, int ldb, float* out, int ldo) {
+  for (int e = tid; e < R * C; e += nthr) {
+    const int r = e / C, c = e % C;
+    float s = 0.f;
+    for (int i = 0; i < I; ++i) s = s + A[i * lda + r] * B[i * ldb + c];
+    out[r * ldo + c] = s;
+  }
+}
+
 // Offsets, in floats, of the sweep's shared working set for state width n
 // and control width m (Z = n + m, N1 = n + 1).
 struct RiccatiLayout {
@@ -138,12 +159,7 @@ __device__ void riccati_sweep_block(int tid, int nthr, Sync sync, int H, int n, 
       AB[e] = c < n ? At[i * n + c] : Bt[i * m + c - n];
     }
     sync();
-    for (int e = tid; e < Z * N1; e += nthr) {  // GW = [A B]^T W
-      const int rr = e / N1, c = e % N1;
-      float s = 0.f;
-      for (int i = 0; i < n; ++i) s = s + AB[i * Z + rr] * W[i * N1 + c];
-      GW[e] = s;
-    }
+    block_mm_tn(tid, nthr, Z, N1, n, AB, Z, W, N1, GW, N1);  // GW = [A B]^T W
     sync();
     for (int e = tid; e < Z * Z; e += nthr) {  // the Q blocks
       const int rr = e / Z, c = e % Z;

@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gym_kmanip_torch import constants as k
-from gym_kmanip_torch.models import scene_tensors
+from gym_kmanip_torch.models import model_tensors, scene_tensors
 from gym_kmanip_torch.utils import rotations as rot
 from gym_kmanip_torch.utils.rotations import cross
 
@@ -151,6 +151,34 @@ def fingertips_cube_table(tip_pos, tip_vel, tip_radius, cube_pos, cube_quat,
     cube_force = torch.sum(f_cubes, dim=-2)
     cube_torque = torch.sum(cross(arm, f_cubes), dim=-2)
     return f_tips, cube_force, cube_torque, pen > 0
+
+
+def contact_forces_fast(model, tip_pos, tip_vel, cube_pos, cube_quat, cube_linvel,
+                        cube_angvel) -> ContactOut:
+    """`contact_forces` with the model's fingertip radii, through the
+    contact kernel (ops/contacts_cuda, K6) on the card: the leading
+    dimensions broadcast and flatten into its batch (an unbatched state is
+    a batch of one), one launch per call. Tensors on the CPU run
+    `contact_forces`; any other device raises. The JAX package's seam of
+    the same name sends a vmapped batch on the TPU to its Pallas kernel."""
+    if tip_pos.device.type == "cpu":
+        radius = model_tensors(model, tip_pos.device).tip_radius
+        return contact_forces(tip_pos, tip_vel, radius, cube_pos, cube_quat, cube_linvel,
+                              cube_angvel)
+    from gym_kmanip_torch.ops.contacts_cuda import contact_forces_batched
+
+    T = len(model.fingertips)
+    batch = torch.broadcast_shapes(tip_pos.shape[:-2], tip_vel.shape[:-2], cube_pos.shape[:-1],
+                                   cube_quat.shape[:-1], cube_linvel.shape[:-1],
+                                   cube_angvel.shape[:-1])
+
+    def flat(x, shape):
+        return x.expand(batch + shape).reshape((-1,) + shape).contiguous()
+
+    out = contact_forces_batched(
+        model, flat(tip_pos, (T, 3)), flat(tip_vel, (T, 3)), flat(cube_pos, (3,)),
+        flat(cube_quat, (4,)), flat(cube_linvel, (3,)), flat(cube_angvel, (3,)))
+    return ContactOut(*(x.reshape(batch + x.shape[1:]) for x in out))
 
 
 def contact_forces(tip_pos, tip_vel, tip_radius, cube_pos, cube_quat,

@@ -9,6 +9,8 @@ constraint forces solved through the mass matrix.
 `substep` dispatches by the device of the state: a CPU state runs the plain
 PyTorch `_substep_torch`; any other state runs the hand-written CUDA kernel
 (ops/substep_cuda.py), which raises for a device it cannot run on.
+`substep_staged` is the same step as three kernels (FK + RNEA, contacts,
+the SPD solve) with torch code between them.
 """
 
 from functools import partial
@@ -136,19 +138,45 @@ def _substep_kernel(model, state, dt, contact, implicit_actuation):
 def _substep_torch(model: RobotModel, state: SimState, dt: float,
                    contact: bool = True, implicit_actuation: bool = False):
     """One physics substep in plain PyTorch (the twin of the JAX package's
-    `_substep_jnp`), on any device and any leading batch dimensions.
+    `_substep_jnp`), on any device and any leading batch dimensions. It
+    launches no kernel on any device: the kernels' plain versions are built
+    on it.
 
     `implicit_actuation` integrates the servo stiffness implicitly (adds
     dt^2 diag(kp) to M and dt kp v to the force): MPC rollouts at dt = 20 ms
     need it, the 2 ms plant does not."""
+    return _substep_body(model, state, dt, contact, implicit_actuation, staged=False)
+
+
+def substep_staged(model: RobotModel, state: SimState, dt: float, contact: bool = True,
+                   implicit_actuation: bool = False):
+    """One physics substep on the staged route, `substep`'s signature, so it
+    serves as a rollout's `substep_fn`: the counterpart of the JAX
+    package's `_substep_jnp(..., unrolled_solve=True)` under a batch. The
+    frames and bias come from `kin.rnea_terms_fast` (K5 on the card), the
+    contacts from `contacts.contact_forces_fast` (K6), and every solve with
+    M, one for the unconstrained step and one per constraint sweep, from
+    `linalg.batch_aware_cholesky_solve` (K7); the rest is the plain
+    substep's torch code. On the CPU every stage runs its plain version."""
+    return _substep_body(model, state, dt, contact, implicit_actuation, staged=True)
+
+
+def _substep_body(model: RobotModel, state: SimState, dt: float, contact: bool,
+                  implicit_actuation: bool, staged: bool):
     t = model_tensors(model, state.qpos.device)
     q, v = state.qpos, state.qvel
     nq, nu = model.nq, model.nu
 
-    xpos, xquat, axis_w, tau_bias = kin.rnea_terms(model, q, v)
+    rnea_terms = kin.rnea_terms_fast if staged else kin.rnea_terms
+    xpos, xquat, axis_w, tau_bias = rnea_terms(model, q, v)
     tip_pos, tip_vel, tip_jac, tip_rad = _tip_state(model, xpos, xquat, axis_w, v)
 
-    if contact:
+    if contact and staged and model.fingertips:
+        con = contacts.contact_forces_fast(
+            model, tip_pos, tip_vel, state.cube_pos, state.cube_quat,
+            state.cube_linvel, state.cube_angvel,
+        )
+    elif contact:
         con = contacts.contact_forces(
             tip_pos, tip_vel, tip_rad, state.cube_pos, state.cube_quat,
             state.cube_linvel, state.cube_angvel,
@@ -176,7 +204,10 @@ def _substep_torch(model: RobotModel, state: SimState, dt: float,
     if implicit_actuation:
         tau = tau - dt * t.kp_full * v
         M = M + dt * dt * torch.diag(t.kp_full)
-    solve = partial(linalg.cholesky_substitute, linalg.cholesky_factor(M))
+    if staged:
+        solve = partial(linalg.batch_aware_cholesky_solve, M)
+    else:
+        solve = partial(linalg.cholesky_substitute, linalg.cholesky_factor(M))
     qacc = solve(tau)
     qacc = constraint_qacc(model, q, v, qacc, torch.diagonal(M, dim1=-2, dim2=-1),
                            solve, dt)

@@ -13,6 +13,7 @@ without nvcc or a GPU.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +33,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, stack and spills, kept by `library_path`
 )
 
 
@@ -73,11 +75,33 @@ def library_path(name: str, sources, headers) -> str:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
             )
+        with open(out[: -len(".so")] + ".ptxas.txt", "w") as f:
+            f.write(proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def ptxas_report(name: str, sources, headers) -> dict:
+    """{kernel: (registers, stack bytes, spill store bytes)} from the ptxas
+    report of the library's build (after `library_path`)."""
+    path = library_path(name, list(sources), list(headers))[: -len(".so")] + ".ptxas.txt"
+    report, kernel, stack, spills = {}, None, 0, 0
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+            if m:
+                stack, spills = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel is not None:
+                report[kernel] = (int(m.group(1)), stack, spills)
+                kernel, stack, spills = None, 0, 0
+    return report
 
 
 def load_library(name: str, sources, headers) -> ctypes.CDLL:

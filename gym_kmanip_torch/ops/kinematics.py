@@ -111,6 +111,24 @@ def mass_matrix_from_frames(model: RobotModel, xpos, xquat, axis_w) -> torch.Ten
     return M + torch.diag(t.armature)
 
 
+def rnea_terms_fast(model: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor):
+    """`rnea_terms` through the FK + RNEA kernel (ops/rnea_cuda, K5) on the
+    card: the leading dimensions broadcast and flatten into its batch (an
+    unbatched state is a batch of one), one launch per call. Tensors on
+    the CPU run `rnea_terms`; any other device raises. The JAX package's
+    seam of the same name sends a vmapped batch on the TPU to its Pallas
+    kernel."""
+    if qpos.device.type == "cpu":
+        return rnea_terms(model, qpos, qvel)
+    from gym_kmanip_torch.ops.rnea_cuda import rnea_terms_batched
+
+    nq = model.nq
+    batch = torch.broadcast_shapes(qpos.shape[:-1], qvel.shape[:-1])
+    out = rnea_terms_batched(model, qpos.expand(batch + (nq,)).reshape(-1, nq).contiguous(),
+                             qvel.expand(batch + (nq,)).reshape(-1, nq).contiguous())
+    return tuple(x.reshape(batch + x.shape[1:]) for x in out)
+
+
 def rnea_terms(model: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor):
     """One forward pass: (xpos, xquat, axis_w, qfrc_bias).
 

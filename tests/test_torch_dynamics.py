@@ -7,30 +7,38 @@ substep qpos and xpos 1e-5, qvel and cube 1e-4, touch flags exact.
 """
 
 import ctypes
+import functools
 import os
 import re
 import shutil
 import subprocess
+from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from gym_kmanip_tpu.dynamics import contacts as jcontacts
 from gym_kmanip_tpu.dynamics.engine import _substep_jnp
 from gym_kmanip_tpu.dynamics.state import SimState as JSimState
 from gym_kmanip_tpu.models import get_model as jax_get_model
 from gym_kmanip_tpu.ops import kinematics as jkin
+from gym_kmanip_tpu.ops import linalg as jlinalg
+from gym_kmanip_tpu.ops.pallas_contacts import _contacts_kernel
+from gym_kmanip_tpu.ops.pallas_dynamics import _rnea_kernel
+from gym_kmanip_tpu.ops.pallas_linalg import _chol_solve_kernel
 from gym_kmanip_tpu.utils import rotations as jrot
 
 from gym_kmanip_torch.dynamics import contacts, engine
 from gym_kmanip_torch.dynamics.state import SimState, init_state
 from gym_kmanip_torch.models import from_numpy_model, model_tensors
+from gym_kmanip_torch.ops import chol_solve_cuda, contacts_cuda, linalg, rnea_cuda
 from gym_kmanip_torch.ops import kinematics as kin
 from gym_kmanip_torch.ops import riccati_cuda, rollout_feedback_cuda, rollout_pick_cuda
-from gym_kmanip_torch.ops import substep_cuda
+from gym_kmanip_torch.ops import substep_cuda, sweep_floor_cuda
 from gym_kmanip_torch.utils import rotations as rot
 
 torch.set_num_threads(1)
@@ -79,19 +87,26 @@ def test_rotations_match_jax():
     _close(rot.euler_xyz_to_quat_np(euler[0]), jrot.euler_xyz_to_quat(euler[0]), 1e-6)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_rnea(name):
+    """(JAX model, port model, q, v, JAX rnea_terms_fast under vmap) on the
+    inputs of tests/test_pallas.py:56-73 (K=4). On the CPU the JAX seam runs
+    `jax.vmap(rnea_terms)`, so this one eager evaluation serves both the
+    kinematics test and the K5 test."""
+    jm = jax_get_model(name)
+    m = from_numpy_model(jm)
+    rng = np.random.RandomState(0)
+    q = rng.uniform(m.jnt_range[:, 0].clip(-3), m.jnt_range[:, 1].clip(max=3),
+                    (4, m.nq)).astype(np.float32)
+    v = (rng.randn(4, m.nq) * 0.4).astype(np.float32)
+    return jm, m, q, v, jax.vmap(lambda a, b: jkin.rnea_terms_fast(jm, a, b))(q, v)
+
+
 def test_kinematics_match_jax():
     """On the torso, the branching 20-dof tree (the solo arm's frames are
     held by the substep test)."""
-    jm = jax_get_model("torso")
-    m = from_numpy_model(jm)
-    K = 4
-    rng = np.random.RandomState(0)
-    q = rng.uniform(m.jnt_range[:, 0].clip(-3), m.jnt_range[:, 1].clip(max=3),
-                    (K, m.nq)).astype(np.float32)
-    v = (rng.randn(K, m.nq) * 0.4).astype(np.float32)
-
+    jm, m, q, v, want = _jax_rnea("torso")
     got = kin.rnea_terms(m, _t(q), _t(v))
-    want = jax.vmap(lambda a, b: jkin.rnea_terms(jm, a, b))(q, v)
     for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-4)):
         _close(g, w, tol)
 
@@ -143,6 +158,157 @@ def test_contact_forces_match_jax(solo):
     _close(pen, [0.008 + 0.008, 0.008 + 0.01, 0.008 + 0.02], 1e-7)
 
 
+def _pallas_outputs(kernel, out_shapes, *inputs, interpret=True):
+    """A JAX package Pallas kernel on (rows, K) inputs and outputs, on the
+    CPU. With `interpret`, in interpret mode, as tests/test_pallas.py runs
+    it; that compiles the whole trace-time-unrolled kernel first (13 s for
+    the solo arm's FK + RNEA, 23 s for the torso's, 4.6 s for the n=20
+    solve, measured on an 8-core x86 CPU). Without, the kernel function
+    itself runs eagerly, host arrays standing in for its refs: the same
+    operations, for well under a second."""
+    if interpret:
+        return pl.pallas_call(kernel, out_shape=tuple(
+            jax.ShapeDtypeStruct(s, jnp.float32) for s in out_shapes), interpret=True)(*inputs)
+    outs = [np.zeros(s, np.float32) for s in out_shapes]
+    kernel(*(np.ascontiguousarray(a, np.float32) for a in inputs), *outs)
+    return outs
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+def test_rnea_terms_fast_matches_jax(name):
+    """`rnea_terms_fast` (K5's plain version on CPU tensors) against the JAX
+    seam `kinematics.rnea_terms_fast` under vmap and against the Pallas
+    kernel `_rnea_kernel` (run eagerly: interpret mode costs 13-23 s here,
+    and tests/test_pallas.py:55-88 already runs it), on the inputs of
+    tests/test_pallas.py:56-73: frames 1e-5, bias 1e-4 (:85-88)."""
+    jm, m, q, v, seam = _jax_rnea(name)
+    K, nq = q.shape
+    got = kin.rnea_terms_fast(m, _t(q), _t(v))
+    xp, xq, ax, bias = _pallas_outputs(partial(_rnea_kernel, jm, -9.81),
+                                       ((nq * 3, K), (nq * 4, K), (nq * 3, K), (nq, K)),
+                                       q.T, v.T, interpret=False)
+    kernel = (xp.T.reshape(K, nq, 3), xq.T.reshape(K, nq, 4), ax.T.reshape(K, nq, 3), bias.T)
+    for want in (seam, kernel):
+        for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-4)):
+            _close(g, w, tol)
+    # leading batch dimensions and an unbatched state
+    two = kin.rnea_terms_fast(m, _t(q).reshape(2, 2, nq), _t(v).reshape(2, 2, nq))
+    one = kin.rnea_terms_fast(m, _t(q[1]), _t(v[1]))
+    for g, g2, g1 in zip(got, two, one):
+        _close(g2.reshape(g.shape), g, 1e-6)
+        _close(g1, g[1], 1e-6)
+
+
+def _pallas_contact_inputs(m):
+    """The inputs of tests/test_pallas.py:101-117 (K=8)."""
+    T, K = len(m.fingertips), 8
+    rng = np.random.RandomState(1)
+    tip_pos = np.array([0.2, 0.5, 0.62]) + rng.randn(K, T, 3) * 0.02
+    tip_vel = rng.randn(K, T, 3) * 0.2
+    cube_pos = np.tile([0.2, 0.5, 0.62], (K, 1)) + rng.randn(K, 3) * 0.005
+    qn = rng.randn(K, 4) * 0.1 + np.array([1.0, 0, 0, 0])
+    qn /= np.linalg.norm(qn, axis=1, keepdims=True)
+    clv = rng.randn(K, 3) * 0.1
+    cav = rng.randn(K, 3) * 0.3
+    return [a.astype(np.float32) for a in (tip_pos, tip_vel, cube_pos, qn, clv, cav)]
+
+
+def test_contact_forces_fast_matches_jax(solo):
+    """`contact_forces_fast` (K6's plain version on CPU tensors) against the
+    JAX seam `contacts.contact_forces_fast` under vmap and against the
+    Pallas kernel `_contacts_kernel` in interpret mode: forces 1e-4, flags
+    equal (tests/test_pallas.py:135-141)."""
+    jm, m = solo
+    inputs = _pallas_contact_inputs(m)
+    K, T = inputs[0].shape[:2]
+    got = contacts.contact_forces_fast(m, *(_t(a) for a in inputs))
+    seam = jax.jit(jax.vmap(lambda *a: jcontacts.contact_forces_fast(jm, *a)))(*inputs)
+    fc, tc, tf, touch, ttab = _pallas_outputs(
+        partial(_contacts_kernel, jm), ((3, K), (3, K), (T * 3, K), (T, K), (1, K)),
+        inputs[0].reshape(K, T * 3).T, inputs[1].reshape(K, T * 3).T,
+        np.concatenate(inputs[2:], axis=1).T)
+    kernel = (fc.T, tc.T, tf.T.reshape(K, T, 3), touch.T > 0.5, ttab[0] > 0.5)
+    assert np.asarray(seam.touch_tip).any() and not np.asarray(seam.touch_tip).all()
+    for want in (tuple(seam), kernel):
+        for name, g, w in zip(contacts.ContactOut._fields, got, want):
+            if g.dtype == torch.bool:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+            else:
+                _close(g, w, 1e-4, name)
+    # leading batch dimensions and an unbatched state
+    two = contacts.contact_forces_fast(m, *(_t(a).reshape((2, 4) + a.shape[1:]) for a in inputs))
+    one = contacts.contact_forces_fast(m, *(_t(a[3]) for a in inputs))
+    for g, g2, g1 in zip(got, two, one):
+        _close(g2.reshape(g.shape), g, 1e-6)
+        _close(g1, g[3], 1e-6)
+
+
+@pytest.mark.parametrize("n", [6, 10, 20])
+def test_batch_aware_solve_matches_jax(n):
+    """`batch_aware_cholesky_solve` (K7's plain version on CPU tensors)
+    against the JAX package's under vmap, against the Pallas kernel
+    `_chol_solve_kernel` (in interpret mode up to n=10, eagerly at n=20)
+    and against float64, on the problem of tests/test_pallas.py:14-22
+    (K=8): 1e-4 of the largest entry. A matrix that is not positive
+    definite gives NaN on both sides."""
+    K = 8
+    rng = np.random.RandomState(0)
+    A = rng.randn(K, n, n)
+    M = (A @ A.transpose(0, 2, 1) + 5 * np.eye(n)).astype(np.float32)
+    b = rng.randn(K, n).astype(np.float32)
+    got = linalg.batch_aware_cholesky_solve(_t(M), _t(b)).numpy()
+    want64 = np.linalg.solve(M.astype(np.float64), b.astype(np.float64)[..., None])[..., 0]
+    seam = jax.vmap(jlinalg.batch_aware_cholesky_solve)(M, b)
+    (kernel,) = _pallas_outputs(partial(_chol_solve_kernel, n), ((n, K),),
+                                M.reshape(K, n * n).T, b.T, interpret=n <= 10)
+    for want in (want64, seam, kernel.T):
+        _close(got, want, 1e-4 * np.abs(want64).max())
+    # the same solve with a leading (2, 4) batch, an unbatched problem, and
+    # the kernel wrapper's plain version
+    two = linalg.batch_aware_cholesky_solve(_t(M).reshape(2, 4, n, n), _t(b).reshape(2, 4, n))
+    _close(two.reshape(K, n), got, 1e-6 * np.abs(got).max())
+    _close(linalg.batch_aware_cholesky_solve(_t(M[5]), _t(b[5])), got[5],
+           1e-6 * np.abs(got).max())
+    assert torch.equal(chol_solve_cuda.cholesky_solve_batched(_t(M), _t(b)), torch.as_tensor(got))
+    if n == 6:
+        bad = np.eye(n, dtype=np.float32)
+        bad[n // 2, n // 2] = -1.0
+        assert np.isnan(linalg.batch_aware_cholesky_solve(_t(bad), _t(b[0])).numpy()).all()
+        assert np.isnan(np.asarray(jlinalg.batch_aware_cholesky_solve(bad, b[0]))).all()
+
+
+def test_staged_wrappers_run_plain_on_cpu(solo):
+    """On CPU tensors the K5, K6 and K7 wrappers run their plain versions
+    and count no launch; a device that is neither the CPU nor CUDA is
+    refused."""
+    _, m = solo
+    q, v, c, cube = (_t(a) for a in substep_cuda.random_inputs(m, 4, seed=0))
+    wrappers = (rnea_cuda.rnea_terms_batched, contacts_cuda.contact_forces_batched,
+                chol_solve_cuda.cholesky_solve_batched)
+    before = [w.launches for w in wrappers]
+    for g, w in zip(rnea_cuda.rnea_terms_batched(m, q, v), kin.rnea_terms(m, q, v)):
+        assert torch.equal(g, w)
+    xp, xq, ax, _ = kin.rnea_terms(m, q, v)
+    tips, tip_vel, _, rad = engine._tip_state(m, xp, xq, ax, v)
+    args = (tips, tip_vel, cube[:, :3], cube[:, 3:7], cube[:, 7:10], cube[:, 10:])
+    for g, w in zip(contacts_cuda.contact_forces_batched(m, *args),
+                    contacts.contact_forces(tips, tip_vel, rad, *args[2:])):
+        assert torch.equal(g, w)
+    M = torch.eye(m.nq).expand(4, -1, -1).contiguous()
+    assert torch.equal(chol_solve_cuda.cholesky_solve_batched(M, q), q)
+    assert [w.launches for w in wrappers] == before
+    meta = torch.empty(4, m.nq, device="meta")
+    with pytest.raises(ValueError):
+        rnea_cuda.rnea_terms_batched(m, meta, meta)
+    with pytest.raises(ValueError):
+        kin.rnea_terms_fast(m, meta, meta)
+    with pytest.raises(ValueError):
+        linalg.batch_aware_cholesky_solve(torch.empty(4, 3, 3, device="meta"),
+                                          torch.empty(4, 3, device="meta"))
+    with pytest.raises(ValueError):
+        chol_solve_cuda.cholesky_solve_batched(M, q.to("meta"))
+
+
 def _jax_substep(jm, dt, implicit):
     def one(q, v, c, cube):
         s = JSimState(q, v, c, cube[:3], cube[3:7], cube[7:10], cube[10:13],
@@ -152,7 +318,19 @@ def _jax_substep(jm, dt, implicit):
                                  s2.cube_angvel])
         return s2.qpos, s2.qvel, cube2, touch, xpos, xquat
 
-    return jax.jit(jax.vmap(one))
+    return jax.vmap(one)
+
+
+@pytest.fixture(scope="module")
+def jax_substeps(solo):
+    """JAX's `_substep_jnp(..., contact=True, unrolled_solve=True, ...)`
+    under vmap on seeded inputs, both modes in one compiled program: the
+    counterpart of the plain substep and of the staged route (whose seams
+    and batch-aware solve it calls)."""
+    jm, m = solo
+    inputs = substep_cuda.random_inputs(m, 8, seed=3)
+    outs = jax.jit(lambda *a: [_jax_substep(jm, dt, imp)(*a) for dt, imp in MODES])(*inputs)
+    return inputs, dict(zip(MODES, outs))
 
 
 def _assert_substep_outputs(got, want):
@@ -164,14 +342,29 @@ def _assert_substep_outputs(got, want):
             _close(g, w, tol, name)
 
 
-@pytest.mark.parametrize("dt,implicit", MODES)
-def test_substep_matches_jax(solo, dt, implicit):
-    jm, m = solo
-    q, v, c, cube = substep_cuda.random_inputs(m, 8, seed=3)
-    want = _jax_substep(jm, dt, implicit)(q, v, c, cube)
+def _staged(m, dt, implicit, q, v, c, cube):
+    s = SimState(q, v, c, cube[:, :3], cube[:, 3:7], cube[:, 7:10], cube[:, 10:13],
+                 torch.zeros(q.shape[0]))
+    s2, (touch, xpos, xquat) = engine.substep_staged(m, s, dt, True, implicit)
+    cube2 = torch.cat([s2.cube_pos, s2.cube_quat, s2.cube_linvel, s2.cube_angvel], -1)
+    return s2.qpos, s2.qvel, cube2, touch, xpos, xquat
+
+
+@pytest.mark.parametrize("dt,implicit,route", [
+    pytest.param(dt, imp, route, id=f"{dt}-{imp}" + ("" if route == "plain" else "-staged"))
+    for route in ("plain", "staged") for dt, imp in MODES])
+def test_substep_matches_jax(solo, jax_substeps, dt, implicit, route):
+    """The plain substep, and the staged route (K5, K6 and K7 stages; their
+    plain versions on the CPU), against `_substep_jnp` with its seams."""
+    _, m = solo
+    inputs, want = jax_substeps
+    want = want[(dt, implicit)]
     assert np.asarray(want[3]).any() and not np.asarray(want[3]).all()
-    got = substep_cuda.substep_batched_reference(m, dt, True, implicit,
-                                                 *(_t(a) for a in (q, v, c, cube)))
+    args = [_t(a) for a in inputs]
+    if route == "plain":
+        got = substep_cuda.substep_batched_reference(m, dt, True, implicit, *args)
+    else:
+        got = _staged(m, dt, implicit, *args)
     _assert_substep_outputs([x.numpy() for x in got], want)
 
 
@@ -223,6 +416,8 @@ _HOST_HARNESS = r"""
 #include "substep.cuh"
 #include "rollout.cuh"
 #include "riccati.cuh"
+#include "staged.cuh"
+#include "sweep_floor.cuh"
 extern "C" int host_substep(int nq, int T, const float* mf, const int* mi, double dt,
     int contact, int implicit, int K, const float* qpos, const float* qvel,
     const float* ctrl, const float* cube13, float* qo, float* vo, float* co,
@@ -312,6 +507,64 @@ extern "C" void host_chol_solve(int m, int r, const float* Q, float lam, const f
   kmanip::chol_solve_dropping(0, 1, NoSync{}, m, r, Q, lam, RHS, X, S.data(), dsc.data(),
                               piv.data(), keep.data());
 }
+
+// the staged route's per-item kernels (csrc/staged.cuh), item by item
+extern "C" int host_rnea(int nq, int T, const float* mf, const int* mi, int K, const float* q,
+    const float* v, float* xpos, float* xquat, float* axis, float* bias) {
+  using namespace kmanip;
+  if (nq == 10 && T == 2) {
+    ModelView<10, 2> m{mf, mi};
+    for (int k = 0; k < K; ++k) rnea_item<10, 2>(k, m, q, v, xpos, xquat, axis, bias);
+    return 0;
+  }
+  if (nq == 20 && T == 4) {
+    ModelView<20, 4> m{mf, mi};
+    for (int k = 0; k < K; ++k) rnea_item<20, 4>(k, m, q, v, xpos, xquat, axis, bias);
+    return 0;
+  }
+  return -1;
+}
+
+extern "C" int host_contacts(int nq, int T, const float* mf, const int* mi, int K,
+    const float* tp, const float* tv, const float* cp, const float* cq, const float* cl,
+    const float* ca, float* force, float* torque, float* tip_forces, bool* touch_tip,
+    bool* touch_table) {
+  using namespace kmanip;
+  if (nq == 10 && T == 2) {
+    ModelView<10, 2> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      contacts_item<10, 2>(k, m, tp, tv, cp, cq, cl, ca, force, torque, tip_forces, touch_tip,
+                           touch_table);
+    return 0;
+  }
+  if (nq == 20 && T == 4) {
+    ModelView<20, 4> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      contacts_item<20, 4>(k, m, tp, tv, cp, cq, cl, ca, force, torque, tip_forces, touch_tip,
+                           touch_table);
+    return 0;
+  }
+  return -1;
+}
+
+extern "C" int host_spd_solve(int n, int K, const float* M, const float* b, float* x) {
+  using namespace kmanip;
+  for (int k = 0; k < K; ++k) {
+    if (n == 6) chol_solve_item<6>(k, M, b, x);
+    else if (n == 10) chol_solve_item<10>(k, M, b, x);
+    else if (n == 20) chol_solve_item<20>(k, M, b, x);
+    else return -1;
+  }
+  return 0;
+}
+
+extern "C" void host_sweep_floor(int variant, int H, int n, int m, const float* AB,
+    const float* cx, const float* cu, const float* cxx, const float* cuu, const float* cux,
+    const float* WT, float* ks, float* Ks) {
+  std::vector<float> sm(kmanip::floor_layout(n, m).total);
+  kmanip::sweep_floor_block(0, 1, NoSync{}, variant, H, n, m, AB, cx, cu, cxx, cuu, cux, WT,
+                            ks, Ks, sm.data());
+}
 """
 
 
@@ -346,6 +599,14 @@ def host_kernel(tmp_path_factory):
     so.host_riccati.restype = None
     so.host_chol_solve.argtypes = [ctypes.c_int] * 2 + [P, ctypes.c_float, P, P]
     so.host_chol_solve.restype = None
+    so.host_rnea.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_int] + [P] * 6
+    so.host_rnea.restype = ctypes.c_int
+    so.host_contacts.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_int] + [P] * 11
+    so.host_contacts.restype = ctypes.c_int
+    so.host_spd_solve.argtypes = [ctypes.c_int] * 2 + [P] * 3
+    so.host_spd_solve.restype = ctypes.c_int
+    so.host_sweep_floor.argtypes = [ctypes.c_int] * 4 + [P] * 9
+    so.host_sweep_floor.restype = None
     return so
 
 
@@ -451,3 +712,75 @@ def test_riccati_kernel_source_matches_plain_on_host(host_kernel, H, n, m, indef
                                             torch.tensor(0.0)).numpy()
     assert np.all(X[3:] == 0.0)
     _close(X, want, 1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+def test_staged_kernel_sources_match_plain_on_host(host_kernel, name):
+    """csrc/staged.cuh on the host: the FK + RNEA item (K5) against
+    `rnea_terms` (frames 1e-5, bias 1e-4) and the contact item (K6) against
+    `contact_forces` (1e-4, flags equal), on seeded states with contact."""
+    m = from_numpy_model(jax_get_model(name))
+    K, nq, T = 64, m.nq, len(m.fingertips)
+    q, v, _, cube = substep_cuda.random_inputs(m, K, seed=7)
+    mf, mi = substep_cuda.pack_model(m)
+    out = [np.zeros((K, nq, 3), np.float32), np.zeros((K, nq, 4), np.float32),
+           np.zeros((K, nq, 3), np.float32), np.zeros((K, nq), np.float32)]
+    assert host_kernel.host_rnea(nq, T, _ptr(mf), _ptr(mi), K, _ptr(q), _ptr(v),
+                                 *(_ptr(o) for o in out)) == 0
+    want = kin.rnea_terms(m, _t(q), _t(v))
+    for g, w, tol in zip(out, want, (1e-5, 1e-5, 1e-5, 1e-4)):
+        _close(g, w.numpy(), tol)
+
+    tips, tip_vel, _, rad = engine._tip_state(m, *want[:3], _t(v))
+    args = [a.contiguous().numpy() for a in (tips, tip_vel)] + [
+        np.ascontiguousarray(cube[:, a:b]) for a, b in ((0, 3), (3, 7), (7, 10), (10, 13))]
+    got = [np.zeros((K, 3), np.float32), np.zeros((K, 3), np.float32),
+           np.zeros((K, T, 3), np.float32), np.zeros((K, T), bool), np.zeros(K, bool)]
+    assert host_kernel.host_contacts(nq, T, _ptr(mf), _ptr(mi), K, *(_ptr(a) for a in args),
+                                     *(_ptr(o) for o in got)) == 0
+    want = contacts.contact_forces(tips, tip_vel, rad, *(_t(a) for a in args[2:]))
+    assert want.touch_tip.any() and want.touch_table.any()
+    for g, w in zip(got, want):
+        if g.dtype == bool:
+            np.testing.assert_array_equal(g, w.numpy())
+        else:
+            _close(g, w.numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("n", [6, 10, 20])
+def test_spd_solve_kernel_source_matches_plain_on_host(host_kernel, n):
+    """csrc/staged.cuh's SPD solve item (K7) on the host against
+    `cholesky_solve_unrolled` and float64: 1e-4 of the largest entry; NaN
+    for a matrix that is not positive definite."""
+    K = 16
+    rng = np.random.RandomState(n)
+    A = rng.randn(K, n, n)
+    M = (A @ A.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32)
+    M[-1] = np.eye(n, dtype=np.float32)
+    M[-1, 1, 1] = -1.0
+    b = rng.randn(K, n).astype(np.float32)
+    x = np.zeros((K, n), np.float32)
+    assert host_kernel.host_spd_solve(n, K, _ptr(M), _ptr(b), _ptr(x)) == 0
+    want = linalg.cholesky_solve_unrolled(_t(M), _t(b)).numpy()
+    want64 = np.linalg.solve(M[:-1].astype(np.float64), b[:-1, :, None].astype(np.float64))[..., 0]
+    scale = np.abs(want64).max()
+    _close(x[:-1], want[:-1], 1e-4 * scale)
+    _close(x[:-1], want64, 1e-4 * scale)
+    assert np.isnan(x[-1]).all() and np.isnan(want[-1]).all()
+
+
+@pytest.mark.parametrize("variant", sweep_floor_cuda.VARIANTS)
+def test_sweep_floor_kernel_source_matches_plain_on_host(host_kernel, variant):
+    """csrc/sweep_floor.cuh run with one thread and a no-op barrier against
+    `sweep_reference` at the experiment's widths (n=40, m=20), H=6: 1e-4 of
+    the largest gain."""
+    H, n, m = 6, 40, 20
+    inputs = sweep_floor_cuda.random_inputs(H, n, m)
+    ks = np.full((H, m), np.nan, np.float32)
+    Ks = np.full((H, m, n), np.nan, np.float32)
+    host_kernel.host_sweep_floor(sweep_floor_cuda.VARIANTS.index(variant), H, n, m,
+                                 *(_ptr(a) for a in inputs), _ptr(ks), _ptr(Ks))
+    wks, wKs = sweep_floor_cuda.sweep_reference(variant, *(torch.as_tensor(a) for a in inputs))
+    scale = max(float(wks.abs().max()), float(wKs.abs().max()))
+    for g, w in ((ks, wks.numpy()), (Ks, wKs.numpy())):
+        _close(g, w, 1e-4 * scale)

@@ -135,9 +135,14 @@ def test_ilqr_solve_matches_jax(solo, jax_ref):
 
     The arm's hinge actuators hold atol 1e-4 / rtol 1e-3. The gripper
     sliders' direction of Quu is cuu = 2 w_ctrl = 2e-3 against ~1e2 for the
-    arm (condition ~1e5), so float32 rounding in the solve and the FD
-    slopes moves their controls by up to ~1e-3 m (3% of the 0.034 m
-    ctrlrange; ROADMAP.md Queue 3): held at 2e-3."""
+    arm (condition ~1e5), so float32 rounding anywhere in the iteration
+    moves their controls: the JAX package against itself, with the same
+    FD slopes and the backward sweep in float64, moves them by 3.4e-4 m,
+    and the port against itself, with the substep's Cholesky in the JAX
+    package's Crout order instead of the library's, by 4.6e-4 m (run
+    `measure_slider_spread` below). This port sits 1.02e-3 m from JAX (3%
+    of the 0.034 m ctrlrange): held at 2e-3 (ROADMAP.md, known behaviours
+    of the reference)."""
     r = _port_solve(solo, pallas_backward=False)
     hinge = np.asarray(solo["jm"].jnt_type[: solo["m"].nu]) == 0
     us, want = r.us.numpy(), jax_ref["us"]
@@ -215,3 +220,78 @@ def test_fd_derivs_match_jax(solo, jax_ref, fd_order):
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                    atol=rel * max(np.abs(w).max(), 1e-30), err_msg=name)
+
+
+def measure_slider_spread():
+    """How far the same two-iteration solve (the fixtures' problem) moves
+    the gripper sliders' controls when it is computed another valid way;
+    prints the largest differences of the hinge and slider controls.
+
+        JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_ilqr.py
+
+    JAX: its pieces (`fused_solve=False`, as `jax_ref`) against its fused
+    solve, and against the pieces with the backward sweep in float64 (the
+    same FD slopes). The port: its plain substep (the library's Cholesky)
+    against the staged substep (the JAX package's Crout order) inside the
+    FD linearization. A few minutes on a CPU, most of it XLA compiling."""
+    from gym_kmanip_torch.dynamics import engine
+
+    solo_ = solo.__wrapped__()
+    jm, m, js0 = solo_["jm"], solo_["m"], solo_["js0"]
+    jcost_xu, jquad_xu = solo_["jfns"]
+    hinge = np.asarray(jm.jnt_type[: jm.nu]) == 0
+    ref = jax_ref.__wrapped__(solo_)
+    rollout0, derivs, _, linesearch, _, _ = jilqr._build_pieces(
+        jm, _cfg(jilqr, fused_solve=False), js0, jcost_xu, jilqr._zero_final, jnp.float32,
+        quad_xu=jquad_xu)
+
+    def sweep64(A, B, cx, cu, cxx, cuu, cux, Vx, Vxx, lam):
+        A, B, cx, cu, cxx, cuu, cux, Vx, Vxx = (np.asarray(a, np.float64) for a in
+                                                 (A, B, cx, cu, cxx, cuu, cux, Vx, Vxx))
+        eye = np.eye(B.shape[2])
+        ks, Ks = [None] * H, [None] * H
+        for t in range(H - 1, -1, -1):
+            Qx, Qu = cx[t] + A[t].T @ Vx, cu[t] + B[t].T @ Vx
+            Qxx = cxx[t] + A[t].T @ Vxx @ A[t]
+            Quu = cuu[t] + B[t].T @ Vxx @ B[t] + 1e-6 * eye
+            Qux = cux[t] + B[t].T @ Vxx @ A[t]
+            Quu = 0.5 * (Quu + Quu.T)
+            Quu = Quu + lam * np.abs(Quu).max() * eye
+            Kk = -np.linalg.solve(Quu, np.concatenate([Qu[:, None], Qux], axis=1))
+            ks[t], Ks[t] = Kk[:, 0], Kk[:, 1:]
+            Vx = Qx + Ks[t].T @ Quu @ ks[t] + Ks[t].T @ Qu + Qux.T @ ks[t]
+            Vxx = Qxx + Ks[t].T @ Quu @ Ks[t] + Ks[t].T @ Qux + Qux.T @ Ks[t]
+            Vxx = 0.5 * (Vxx + Vxx.T)
+        return np.stack(ks).astype(np.float32), np.stack(Ks).astype(np.float32)
+
+    x0 = jilqr.flatten_state(js0, reduced=True)
+    us = jilqr._clip_u(jm, jnp.asarray(solo_["u_init"]))
+    xs, cost = rollout0(x0, us)
+    lam = 0.0
+    for _ in range(N_ITERS):
+        ks, Ks = sweep64(*derivs(xs, us), lam)
+        xs_c, us_c, cost_c = linesearch(x0, xs, us, jnp.asarray(ks), jnp.asarray(Ks))
+        better = bool(cost_c < cost)
+        xs, us = (xs_c, us_c) if better else (xs, us)
+        lam = lam * 0.25 if better else max(lam * 32.0, 1e-3)
+        cost = min(float(cost_c), float(cost))
+    us64 = np.asarray(us)
+    fused = np.asarray(jilqr.make_ilqr_solver(jm, _cfg(jilqr), jcost_xu, quad_xu=jquad_xu)(
+        js0, jnp.asarray(solo_["u_init"])).us)
+    port = _port_solve(solo_, pallas_backward=False).us.numpy()
+    cost_xu, quad_xu = solo_["fns"]
+    staged = ilqr.make_ilqr_solver(
+        m, _cfg(ilqr, pallas_backward=False), cost_xu, quad_xu=quad_xu,
+        ops=ilqr.KERNEL_OPS._replace(substep=engine.substep_staged))(
+        solo_["s0"], torch.as_tensor(solo_["u_init"])).us.numpy()
+    for name, a, b in (("JAX pieces vs JAX fused solve", ref["us"], fused),
+                       ("JAX pieces vs JAX with the sweep in float64", ref["us"], us64),
+                       ("port vs JAX pieces", port, ref["us"]),
+                       ("port vs port with the Crout-order substep", port, staged)):
+        d = np.abs(a - b)
+        print(f"{name}: hinge {d[:, hinge].max():.3e}, slider {d[:, ~hinge].max():.3e}")
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    measure_slider_spread()

@@ -5,7 +5,8 @@ linearization is held in tests/test_torch_ilqr.py.
 Tolerances, with their reasons:
 - Feedback rollout: us atol 2e-5 / rtol 1e-4, xs 5e-4 / 1e-3
   (tests/test_pallas.py:377-380).
-- Riccati sweep: 1e-4 of the largest gain against itself in float64;
+- Riccati sweep, and each variant of the sweep-floor experiment (K8):
+  1e-4 of the largest gain against itself in float64;
   2e-3 of it against the Pallas kernel in interpret mode, whose
   bf16x3-emulated products (~2^-21 relative) the lifted recursion grows to
   8e-4 of the largest gain on the indefinite problem (measured against
@@ -13,11 +14,16 @@ Tolerances, with their reasons:
   drop: 5e-3 (tests/test_mpc.py:227-228).
 """
 
+import importlib.util
+import os
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from gym_kmanip_tpu.dynamics.state import init_state as jinit_state
 from gym_kmanip_tpu.models import get_model as jax_get_model
@@ -27,7 +33,7 @@ from gym_kmanip_tpu.solvers import ilqr as jilqr
 
 from gym_kmanip_torch.dynamics.state import state_from_numpy
 from gym_kmanip_torch.models import from_numpy_model
-from gym_kmanip_torch.ops import riccati_cuda, rollout_feedback_cuda
+from gym_kmanip_torch.ops import riccati_cuda, rollout_feedback_cuda, sweep_floor_cuda
 
 torch.set_num_threads(1)
 
@@ -162,3 +168,48 @@ def test_chol_solve_drops_pivots_like_jax():
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
     # the dropped directions carry zero gain
     assert np.all(got.numpy()[3:] == 0.0) and np.all(got.numpy()[:3] != 0.0)
+
+
+@pytest.fixture(scope="module")
+def floor_tool():
+    """The JAX package's experiment tools/exp_sweep_floor.py, loaded by path
+    with FLOOR_H=3 (it reads the horizon when it is imported); its other
+    widths stay n=40, m=20."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "exp_sweep_floor.py")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLOOR_H", "3")
+        spec = importlib.util.spec_from_file_location("exp_sweep_floor_h3", path)
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("variant", sweep_floor_cuda.VARIANTS)
+def test_sweep_floor_plain_matches_jax(floor_tool, variant):
+    """The floor experiment's plain version (`sweep` on CPU tensors) against
+    itself in float64 at 1e-4 of the largest gain, and against the
+    experiment's Pallas kernel `_kernel` in interpret mode (bf16x3 products)
+    at 2e-3 of it, as the Riccati sweep above. `load1nostore` writes only
+    row 0 (the JAX kernel leaves the other rows undefined; the port's are
+    zero), so that variant is compared on row 0."""
+    H, n, m = floor_tool.H, floor_tool.N, floor_tool.M
+    inputs = sweep_floor_cuda.random_inputs(H, n, m)
+    ks_j, Ks_j = pl.pallas_call(
+        partial(floor_tool._kernel, variant, 1),
+        out_shape=(jax.ShapeDtypeStruct((H, m), jnp.float32),
+                   jax.ShapeDtypeStruct((H, m, n), jnp.float32)),
+        interpret=True)(*inputs)
+    before = sweep_floor_cuda.sweep.launches
+    ks, Ks = sweep_floor_cuda.sweep(variant, *(torch.as_tensor(a) for a in inputs))
+    assert sweep_floor_cuda.sweep.launches == before
+    ks64, Ks64 = sweep_floor_cuda.sweep_reference(
+        variant, *(torch.as_tensor(a).double() for a in inputs))
+    rows = slice(0, 1) if variant == "load1nostore" else slice(None)
+    if variant == "load1nostore":
+        assert not ks[1:].any() and not Ks[1:].any()
+    scale = max(float(ks64[rows].abs().max()), float(Ks64[rows].abs().max()))
+    for g, w, w64 in ((ks, ks_j, ks64), (Ks, Ks_j, Ks64)):
+        g, w, w64 = g.numpy()[rows], np.asarray(w)[rows], w64.numpy()[rows]
+        np.testing.assert_allclose(g, w64, rtol=0, atol=1e-4 * scale)
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-3 * scale)

@@ -49,18 +49,42 @@ def _close(got, want, atol, msg=""):
                                atol=atol, rtol=0, err_msg=msg)
 
 
-def _rollout_totals(solo, dt, n_substeps):
+@pytest.fixture(scope="module")
+def jax_refs(solo):
+    """The JAX package's results that the rollout and MPPI tests compare
+    against, in ONE compiled program (one XLA compile instead of three):
+    `rollout_with_traj` on seeded sequences at the MPC rate (dt=0.02, one
+    substep) and at env fidelity (dt=0.002, two substeps), and the MPPI
+    solve of `make_mppi_solver` at H=3."""
+    jm, m, jcost, _ = solo
+    rng = np.random.RandomState(3)
+    U = (jm.home_qpos[: jm.nu] + 0.1 * rng.randn(K, H, jm.nu)).astype(np.float32)
+    js0 = jinit_state(jm)
+    jcfg = jmppi.MPPIConfig(horizon=H, n_samples=K)
+    jms = jmppi.init_mppi(jm, jcfg)
+    solver = jmppi.make_mppi_solver(jm, jcfg, jcost)
+
+    def refs(U):
+        totals = {}
+        for dt, n_substeps in ((0.02, 1), (0.002, 2)):
+            total, _, steps = jax.vmap(lambda u: jrollout_with_traj(
+                jm, js0, u, jcost, n_substeps=n_substeps, dt=dt))(U)
+            totals[dt] = (steps[:, 0], total)
+        return totals, solver(jms, js0)
+
+    totals, mppi_out = jax.jit(refs)(U)
+    return dict(U=U, js0=js0, jcfg=jcfg, jms=jms, mppi=mppi_out,
+                totals={dt: tuple(np.asarray(a) for a in v) for dt, v in totals.items()})
+
+
+def _rollout_totals(solo, jax_refs, dt, n_substeps):
     """The JAX H=3 totals and per-step costs (whose first column is the H=1
     total) of seeded sequences, and the port's `rollout` and fused-rollout
     wrapper (on CPU tensors, that same rollout) on them."""
     jm, m, jcost, cost = solo
-    rng = np.random.RandomState(3)
-    U = (jm.home_qpos[: jm.nu] + 0.1 * rng.randn(K, H, jm.nu)).astype(np.float32)
-    js0 = jinit_state(jm)
-    total, _, steps = jax.jit(jax.vmap(
-        lambda u: jrollout_with_traj(jm, js0, u, jcost, n_substeps=n_substeps, dt=dt)
-    ))(U)
-    s0 = state_from_numpy(js0, device="cpu")
+    U = jax_refs["U"]
+    want1, want3 = jax_refs["totals"][dt]
+    s0 = state_from_numpy(jax_refs["js0"], device="cpu")
     kw = dict(n_substeps=n_substeps, dt=dt)
     got1, _ = rollout(m, s0, torch.as_tensor(U[:, :1]), cost, **kw)
     got3, final = rollout(m, s0, torch.as_tensor(U), cost, **kw)
@@ -69,20 +93,20 @@ def _rollout_totals(solo, dt, n_substeps):
     fused1 = rollout_pick_cuda.rollout_pick_costs(m, torch.as_tensor(U[:, :1]), s0, **kw)
     fused3 = rollout_pick_cuda.rollout_pick_costs(m, torch.as_tensor(U), s0, **kw)
     assert rollout_pick_cuda.rollout_pick_costs.launches == before
-    return np.asarray(steps)[:, 0], np.asarray(total), (got1, fused1), (got3, fused3)
+    return want1, want3, (got1, fused1), (got3, fused3)
 
 
-def test_rollout_totals_match_jax(solo):
-    want1, want3, got1, got3 = _rollout_totals(solo, 0.02, 1)
+def test_rollout_totals_match_jax(solo, jax_refs):
+    want1, want3, got1, got3 = _rollout_totals(solo, jax_refs, 0.02, 1)
     for g in got1:
         _close(g, want1, 1e-5, "H=1")
     for g in got3:
         _close(g, want3, 1e-3, "H=3")
 
 
-def test_rollout_totals_at_env_fidelity_match_jax(solo):
+def test_rollout_totals_at_env_fidelity_match_jax(solo, jax_refs):
     """n_substeps=2 at dt=0.002 (tests/test_pallas.py:252-267)."""
-    want1, want3, got1, got3 = _rollout_totals(solo, 0.002, 2)
+    want1, want3, got1, got3 = _rollout_totals(solo, jax_refs, 0.002, 2)
     for g in got1:
         _close(g, want1, 1e-5, "H=1")
     for g in got3:
@@ -111,12 +135,11 @@ def test_fused_pick_solver_matches_plain_mppi(solo):
     _close(ms_f.nominal, ms_p.nominal, 1e-5, "nominal")
 
 
-def test_mppi_solve_matches_jax_with_injected_noise(solo):
+def test_mppi_solve_matches_jax_with_injected_noise(solo, jax_refs):
     jm, m, jcost, cost = solo
     cfg = mppi.MPPIConfig(horizon=H, n_samples=K)
-    jcfg = jmppi.MPPIConfig(horizon=H, n_samples=K)
-    jms, js0 = jmppi.init_mppi(jm, jcfg), jinit_state(jm)
-    ms_j, u0_j, J_j = jmppi.make_mppi_solver(jm, jcfg, jcost)(jms, js0)
+    jcfg, jms, js0 = jax_refs["jcfg"], jax_refs["jms"], jax_refs["js0"]
+    ms_j, u0_j, J_j = jax_refs["mppi"]
     # the draw JAX's solve made: its key split, then sample_noise
     _, sub = jax.random.split(jms.rng)
     eps = jmppi.sample_noise(sub, K, H, jm.nu, jmppi.sigma_per_actuator(jm, jcfg.sigma),
