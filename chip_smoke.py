@@ -45,11 +45,11 @@ Phases (any failure raises, and the script exits non-zero):
                   equal; the solve 1e-4 relative, also against float64) and
                   on seeded torso inputs (K7: a seeded n=20 problem), their
                   times beside the plain versions' (K7 also beside
-                  torch.linalg.solve); 20 solves with the launch counts per
+                  torch.linalg.solve); 5 solves with the launch counts per
                   solve checked (K5 50, K6 50, K7 200, K1 0), the staged route
                   against the plain route on one injected draw at H=4 (u0
-                  1e-5, J 1e-4, nominal 1e-5), solves/s beside the K1 and
-                  fused routes, and a torch.profiler breakdown of 2 solves
+                  1e-5, J 1e-4, nominal 1e-5), solves/s (5 x 5 solves) beside
+                  the K1 and fused routes, and a torch.profiler breakdown of 2 solves
                   (device busy, kernel launches, the largest kernels).
   9. K8 floor:    the Riccati step's floor experiment
                   (gym_kmanip_torch.tools.exp_sweep_floor) at H=100, n=40,
@@ -721,7 +721,7 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def time_pair(fn, ref, n_kernel=200, n_plain=20):
+def time_pair(fn, ref, n_kernel=200, n_plain=5):
     ms = cuda_ms(fn, n_kernel)
     plain_ms = cuda_ms(lambda: plain(ref), n_plain)
     return ms, plain_ms
@@ -846,7 +846,7 @@ def phase_staged_mppi(model, cost, k1_rates, fused_rates):
     ms, u0, J = solver(ms, sim_state)
     torch.cuda.synchronize()
     reset_counts()
-    n_solves, Js = 20, []
+    n_solves, Js = 5, []
     for _ in range(n_solves):
         ms, u0, J = solver(ms, sim_state)
         Js.append(J)
@@ -876,8 +876,8 @@ def phase_staged_mppi(model, cost, k1_rates, fused_rates):
     check("staged", "staged route vs plain route at H=4: nominal",
           max_err(ms_s.nominal, ms_p.nominal), 1e-5)
 
-    rates, ms = solves_per_sec(solver, ms, sim_state)
-    log("staged", f"staged route: {rate_line(rates)} x 20 solves; K1 route "
+    rates, ms = solves_per_sec(solver, ms, sim_state, n_solves=5)
+    log("staged", f"staged route: {rate_line(rates)} x 5 solves; K1 route "
                   f"{statistics.median(k1_rates):.2f}, fused route "
                   f"{statistics.median(fused_rates):.2f} (same run)")
     busy, n_launch, by_kernel = device_profile(lambda: solver(ms, sim_state), 2)
@@ -1010,11 +1010,11 @@ def main():
         m._library()
     log("build", f"{len(mods)} libraries built in parallel and loaded in "
                  f"{time.perf_counter() - t0:.2f} s "
-                 f"({', '.join(f'{k} {v:.2f} s' for k, v in ready.items())})")
-    for m in mods[4:]:
-        for kernel, (regs, stack, spills) in _build.ptxas_report(*m.LIBRARY).items():
-            log("build", f"ptxas {kernel}: {regs} registers, {stack} bytes stack, "
-                         f"{spills} bytes spilled")
+                 f"({', '.join(f'{k} {v[0]:.2f} s' for k, v in ready.items())})")
+    for m in mods[4:]:  # ptxas's registers, stack and spills of K5-K8
+        for line in ready[m.LIBRARY[0]][1].splitlines():
+            if "entry function" in line or "stack frame" in line or "Used" in line:
+                log("build", line.strip())
 
     def no_staged_launch(phase):
         if any(staged_counts().values()):

@@ -160,9 +160,11 @@ __device__ void rollout_feedback_thread(
     }
     for (int i = 0; i < nu; ++i) {
       const float* Ki = Ks + ((long)h * nu + i) * N;
-      float acc = us_nom[h * nu + i] + alpha * ks[h * nu + i];
-      for (int j = 0; j < N; ++j) acc = acc + Ki[j] * dx[j];
-      u[i] = clampf(acc, ctrl_lo[i], ctrl_hi[i]);
+      // u_nom + alpha k + K dx in the reference's order: the small feedback
+      // sum first, then one add to the feedforward term.
+      float fb = 0.f;
+      for (int j = 0; j < N; ++j) fb = fb + Ki[j] * dx[j];
+      u[i] = clampf((us_nom[h * nu + i] + alpha * ks[h * nu + i]) + fb, ctrl_lo[i], ctrl_hi[i]);
     }
     Cube cube{{cube0[0], cube0[1], cube0[2]},
               {cube0[3], cube0[4], cube0[5], cube0[6]},

@@ -13,7 +13,6 @@ without nvcc or a GPU.
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -33,7 +32,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # each kernel's registers, stack and spills, kept by `library_path`
+    "-Xptxas", "-v",  # each kernel's registers, stack and spills, on nvcc's stderr
 )
 
 
@@ -61,9 +60,15 @@ def _digest(sources, headers) -> str:
 
 def library_path(name: str, sources, headers) -> str:
     """Path of the built library for `sources`, building it if needed."""
+    return _build(name, sources, headers)[0]
+
+
+def _build(name: str, sources, headers):
+    """(library path, nvcc's stderr); the stderr is empty if the library
+    was built already."""
     out = os.path.join(BUILD_DIR, f"{name}_{_digest(sources, headers)}.so")
     if os.path.exists(out):
-        return out
+        return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -75,33 +80,11 @@ def library_path(name: str, sources, headers) -> str:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
             )
-        with open(out[: -len(".so")] + ".ptxas.txt", "w") as f:
-            f.write(proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out
-
-
-def ptxas_report(name: str, sources, headers) -> dict:
-    """{kernel: (registers, stack bytes, spill store bytes)} from the ptxas
-    report of the library's build (after `library_path`)."""
-    path = library_path(name, list(sources), list(headers))[: -len(".so")] + ".ptxas.txt"
-    report, kernel, stack, spills = {}, None, 0, 0
-    with open(path) as f:
-        for line in f:
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                kernel = m.group(1)
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
-            if m:
-                stack, spills = int(m.group(1)), int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and kernel is not None:
-                report[kernel] = (int(m.group(1)), stack, spills)
-                kernel, stack, spills = None, 0, 0
-    return report
+    return out, proc.stderr
 
 
 def load_library(name: str, sources, headers) -> ctypes.CDLL:
@@ -111,14 +94,15 @@ def load_library(name: str, sources, headers) -> ctypes.CDLL:
 
 def build_libraries(libraries) -> dict:
     """Build every (name, sources, headers) library not built yet, one nvcc
-    each, all started together; returns {name: seconds until it was
-    ready}. Raises the first build's error."""
+    each, all started together; returns {name: (seconds until it was
+    ready, nvcc's stderr with ptxas's report)}. Raises the first build's
+    error."""
     t0 = time.perf_counter()
 
     def one(lib):
         name, sources, headers = lib
-        library_path(name, list(sources), list(headers))
-        return name, time.perf_counter() - t0
+        _, log = _build(name, list(sources), list(headers))
+        return name, (time.perf_counter() - t0, log)
 
     with ThreadPoolExecutor(max_workers=max(len(libraries), 1)) as pool:
         return dict(pool.map(one, libraries))

@@ -78,32 +78,24 @@ def cholesky_solve_unrolled(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cholesky_substitute_unrolled(cholesky_factor_unrolled(M), b)
 
 
-def make_batch_aware_solve(use_pallas: bool = True):
-    """SPD solve `solve(M, b)`, M (..., n, n), b (..., n) -> (..., n).
+def batch_aware_cholesky_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SPD solve M (..., n, n), b (..., n) -> (..., n), used by the staged
+    substep.
 
     Tensors on the CPU run `cholesky_solve_unrolled`. Tensors on the card
-    go, with `use_pallas` (the JAX package's name for its batched kernel),
-    to the solve kernel: the leading dimensions broadcast and flatten into
-    its batch K (an unbatched problem is a batch of one), one launch per
-    call. Any other device raises."""
+    go to the solve kernel: the leading dimensions broadcast and flatten
+    into its batch K (an unbatched problem is a batch of one), one launch
+    per call. Any other device raises."""
+    if M.device != b.device:
+        raise ValueError(f"M is on {M.device} and b on {b.device}")
+    if M.device.type == "cpu":
+        return cholesky_solve_unrolled(M, b)
+    if M.device.type != "cuda":
+        raise ValueError(f"batch_aware_cholesky_solve runs on CUDA or the CPU, not {M.device}")
+    from gym_kmanip_torch.ops.chol_solve_cuda import cholesky_solve_batched
 
-    def solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if M.device != b.device:
-            raise ValueError(f"M is on {M.device} and b on {b.device}")
-        if M.device.type == "cpu" or (M.device.type == "cuda" and not use_pallas):
-            return cholesky_solve_unrolled(M, b)
-        if M.device.type != "cuda":
-            raise ValueError(f"batch_aware_cholesky_solve runs on CUDA or the CPU, not {M.device}")
-        from gym_kmanip_torch.ops.chol_solve_cuda import cholesky_solve_batched
-
-        n = M.shape[-1]
-        batch = torch.broadcast_shapes(M.shape[:-2], b.shape[:-1])
-        x = cholesky_solve_batched(M.expand(batch + (n, n)).reshape(-1, n, n).contiguous(),
-                                   b.expand(batch + (n,)).reshape(-1, n).contiguous())
-        return x.reshape(batch + (n,))
-
-    return solve
-
-
-# the default instance, used by the staged substep
-batch_aware_cholesky_solve = make_batch_aware_solve()
+    n = M.shape[-1]
+    batch = torch.broadcast_shapes(M.shape[:-2], b.shape[:-1])
+    x = cholesky_solve_batched(M.expand(batch + (n, n)).reshape(-1, n, n).contiguous(),
+                               b.expand(batch + (n,)).reshape(-1, n).contiguous())
+    return x.reshape(batch + (n,))

@@ -103,20 +103,41 @@ def test_rollout_pick_kernel_matches_plain_on_cuda(cuda, name):
         rp.rollout_pick_costs(m, U, s0._replace(qpos=s0.qpos.cpu()), spec)
 
 
+def float64_twin(m, device, monkeypatch):
+    """A copy of model `m` whose constants, and the scene's, are float64 on
+    `device`, so that a plain version given float64 inputs runs in float64
+    throughout (the constants are the float32 ones, widened). The scene's
+    are swapped in through `monkeypatch` for as long as it lasts. Also used
+    by the host build's test in tests/test_torch_dynamics.py."""
+    import dataclasses
+
+    from gym_kmanip_torch import models
+
+    twin = dataclasses.replace(m)
+    t = models.model_tensors(m, device)
+    twin.cache[("tensors", str(models.canonical_device(device)))] = type(t)(
+        *(x.double() if x.is_floating_point() else x for x in t))
+    s = models.scene_tensors(device)
+    scene = type(s)(*(x.double() for x in s))
+    monkeypatch.setattr(models, "_scene_tensors", lambda _device: scene)
+    return twin
+
+
 @pytest.mark.parametrize("name", ["solo_arm", "torso"])
 def test_rollout_feedback_kernel_matches_plain_on_cuda(cuda, name):
-    """K3 against `rollout_feedback_reference` at H=4 with step sizes 0, 0.3
-    and 1 and random gains at the scales of tests/test_pallas.py:328-342
-    (the host-harness test's setup in tests/test_torch_dynamics.py): us 2e-5
-    / 1e-4, xs 5e-4 / 1e-3 (tests/test_pallas.py:377-380). Random feedback
-    gains amplify float32 rounding along the horizon: on an H100 the two
-    drifted apart by up to 4.3e-4 in us at H=8 and 3.7e-5 at H=6, past the
-    band; `chip_smoke.py` holds K3 at H=50 on a solve's real gains."""
+    """K3 against `rollout_feedback_reference` at B=6, H=8: us 2e-5 / 1e-4,
+    xs 5e-4 / 1e-3 (tests/test_pallas.py:377-380).
+
+    Random feedback gains make this rollout ill-conditioned (one ulp of x0
+    moves the plain version's us past the band; the host build's test in
+    tests/test_torch_dynamics.py prints by how much). So both are also held
+    to the plain rollout in float64: the kernel's controls may be no farther
+    from it than twice the plain float32 version's."""
     from gym_kmanip_torch.ops import rollout_feedback_cuda as rf
 
     m = get_model(name)
     s0 = _state(m, cuda)
-    n, nu, H = 2 * m.nq, m.nu, 4
+    n, nu, H = 2 * m.nq, m.nu, 8
     rng = np.random.RandomState(5)
 
     def t(a):
@@ -126,12 +147,20 @@ def test_rollout_feedback_kernel_matches_plain_on_cuda(cuda, name):
     cube0 = torch.cat([s0.cube_pos, s0.cube_quat, s0.cube_linvel, s0.cube_angvel])
     args = [x0, cube0, x0[None] + t(0.02 * rng.randn(H, n)),
             t(m.home_qpos[:nu] + 0.05 * rng.randn(H, nu)), t(0.03 * rng.randn(H, nu)),
-            t(0.05 * rng.randn(H, nu, n)), t([0.0, 0.3, 1.0])]
+            t(0.05 * rng.randn(H, nu, n)), t([1.0, 0.6, 0.3, 0.1, 0.03, 0.01])]
     before = rf.rollout_feedback.launches
     xs, us = rf.rollout_feedback(m, *args)
     wxs, wus = rf.rollout_feedback_reference(m, *args)
+    with pytest.MonkeyPatch.context() as mp:
+        _, us64 = rf.rollout_feedback_reference(float64_twin(m, cuda, mp),
+                                                *(a.double() for a in args))
     torch.cuda.synchronize()
     assert rf.rollout_feedback.launches == before + 1
+    assert us64.dtype == torch.float64
+    kernel64, plain64 = (float((u.double() - us64).abs().max()) for u in (us, wus))
+    print(f"{name}: us from float64: kernel {kernel64:.3e}, plain {plain64:.3e}; "
+          f"kernel vs plain {float((us - wus).abs().max()):.3e}")
+    assert kernel64 <= 2 * plain64
     np.testing.assert_allclose(us.cpu().numpy(), wus.cpu().numpy(), atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(xs.cpu().numpy(), wxs.cpu().numpy(), atol=5e-4, rtol=1e-3)
     bad = list(args)

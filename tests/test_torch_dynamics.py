@@ -40,6 +40,7 @@ from gym_kmanip_torch.ops import kinematics as kin
 from gym_kmanip_torch.ops import riccati_cuda, rollout_feedback_cuda, rollout_pick_cuda
 from gym_kmanip_torch.ops import substep_cuda, sweep_floor_cuda
 from gym_kmanip_torch.utils import rotations as rot
+from test_torch_cuda import float64_twin
 
 torch.set_num_threads(1)
 
@@ -640,8 +641,10 @@ def test_rollout_kernel_sources_match_plain_on_host(host_kernel, name):
     """csrc/rollout.cuh on the host: the pick-cost rollout (K2) against
     `rollout_pick_costs_reference` (H=3 totals at 1e-3, as
     tests/test_torch_mppi.py holds the H=3 rollout), and the feedback
-    rollout (K3) against `rollout_feedback_reference` (us 2e-5 / 1e-4, xs
-    5e-4 / 1e-3, tests/test_pallas.py:377-380)."""
+    rollout (K3) at B=6, H=8 against `rollout_feedback_reference` (us 2e-5
+    / 1e-4, xs 5e-4 / 1e-3, tests/test_pallas.py:377-380) and, as on the
+    card, no farther from the float64 plain rollout than twice the float32
+    plain version."""
     m = from_numpy_model(jax_get_model(name))
     nq, nu, T = m.nq, m.nu, len(m.fingertips)
     mf, mi = substep_cuda.pack_model(m)
@@ -662,23 +665,35 @@ def test_rollout_kernel_sources_match_plain_on_host(host_kernel, name):
             m, torch.as_tensor(U), s0, spec, n_substeps=n_sub, dt=dt).numpy()
         _close(cost, want, 1e-3, f"pick dt={dt}")
 
-    n, B, H = 2 * nq, 3, 4
+    # the inputs of tests/test_torch_cuda.py's K3 test, and its float64 witness
+    n, B, H = 2 * nq, 6, 8
+    rng = np.random.RandomState(5)
     t = model_tensors(m, "cpu")
     x0 = start[:n].copy()
     cube0 = start[n:].copy()
-    xs_nom = (x0[None] + 0.02 * rng.randn(H, n)).astype(np.float32)
+    xs_nom = (x0[None] + (0.02 * rng.randn(H, n)).astype(np.float32)).astype(np.float32)
     us_nom = (m.home_qpos[:nu] + 0.05 * rng.randn(H, nu)).astype(np.float32)
     ks = (0.03 * rng.randn(H, nu)).astype(np.float32)
     Ks = (0.05 * rng.randn(H, nu, n)).astype(np.float32)
-    alphas = np.array([0.0, 0.3, 1.0], np.float32)
+    alphas = np.array([1.0, 0.6, 0.3, 0.1, 0.03, 0.01], np.float32)
     lo, hi = t.ctrl_lo.numpy(), t.ctrl_hi.numpy()
     xs = np.zeros((B, H, n), np.float32)
     us = np.zeros((B, H, nu), np.float32)
     assert host_kernel.host_rollout_feedback(
         nq, T, _ptr(mf), _ptr(mi), 0.02, 1, B, H, *(_ptr(a) for a in (
             alphas, x0, cube0, xs_nom, us_nom, ks, Ks, lo, hi, xs, us))) == 0
-    wxs, wus = rollout_feedback_cuda.rollout_feedback_reference(
-        m, *(torch.as_tensor(a) for a in (x0, cube0, xs_nom, us_nom, ks, Ks, alphas)))
+    args = [torch.as_tensor(a) for a in (x0, cube0, xs_nom, us_nom, ks, Ks, alphas)]
+    wxs, wus = rollout_feedback_cuda.rollout_feedback_reference(m, *args)
+    with pytest.MonkeyPatch.context() as mp:
+        _, us64 = rollout_feedback_cuda.rollout_feedback_reference(
+            float64_twin(m, "cpu", mp), *(a.double() for a in args))
+    _, us_ulp = rollout_feedback_cuda.rollout_feedback_reference(
+        m, args[0] * (1 + 2.0 ** -23), *args[1:])
+    kernel64, plain64 = (float(np.abs(u.astype(np.float64) - us64.numpy()).max())
+                         for u in (us, wus.numpy()))
+    print(f"{name}: us from float64: host kernel {kernel64:.3e}, plain {plain64:.3e}; one ulp "
+          f"of x0 moves the plain us by {float((us_ulp - wus).abs().max()):.3e}")
+    assert kernel64 <= 2 * plain64
     np.testing.assert_allclose(us, wus.numpy(), atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(xs, wxs.numpy(), atol=5e-4, rtol=1e-3)
 

@@ -16,6 +16,7 @@ Tolerances, with their reasons:
 
 import importlib.util
 import os
+import sys
 from functools import partial
 
 import jax
@@ -174,14 +175,19 @@ def test_chol_solve_drops_pivots_like_jax():
 def floor_tool():
     """The JAX package's experiment tools/exp_sweep_floor.py, loaded by path
     with FLOOR_H=3 (it reads the horizon when it is imported); its other
-    widths stay n=40, m=20."""
+    widths stay n=40, m=20. The tool puts a fixed directory at the front
+    of `sys.path` when it is imported; a copy of `sys.path` takes that
+    insert and is dropped when the context ends."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
                         "exp_sweep_floor.py")
+    search_path = list(sys.path)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("FLOOR_H", "3")
+        mp.setattr(sys, "path", list(sys.path))
         spec = importlib.util.spec_from_file_location("exp_sweep_floor_h3", path)
         tool = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(tool)
+    assert sys.path == search_path
     return tool
 
 
