@@ -5,7 +5,7 @@
 Phases (any failure raises, and the script exits non-zero):
   1. build:       compile the eight CUDA libraries from gym_kmanip_torch/csrc,
                   one nvcc each, all at once; ptxas's registers, stack and
-                  spills of the kernels K5-K8.
+                  spills of every kernel.
   2. K1 substep:  at K=256, random solo-arm states from a seed, in MPC mode
                   (dt=0.02, implicit actuation) and env mode (dt=0.002,
                   explicit): the kernel against its plain PyTorch version
@@ -30,7 +30,10 @@ Phases (any failure raises, and the script exits non-zero):
                   (H=50, 10 iterations, reduced state, Gauss-Newton EE cost,
                   one-sided FD): launches per solve (K1 10, K3 11, K4 10), a
                   monotone cost trace, the plan replayed on the plain route,
-                  solves/s, one solve on the plain route, and the EE
+                  solves/s, a torch.profiler breakdown of 3 solves (device
+                  busy, launches, K1, K3 and K4 device time per solve and per
+                  launch, the largest kernels), one solve on the plain
+                  route, and the EE
                   tracking error after executing the plan on `control_step`.
                   K1 (on the FD probe batch, K=1500 without contact, and the
                   A and B slopes it gives), K3 and K4 against their plain
@@ -586,6 +589,22 @@ def phase_ilqr(model):
         torch.cuda.synchronize()
         rates.append(5 / (time.perf_counter() - t0))
     log("ilqr", f"solo H={H} 10 iterations: {rate_line(rates)} x 5 solves")
+    # where a solve's time goes: device busy against the unprofiled wall
+    # time, and the device time of K1, K3 and K4 per solve and per launch
+    wall = 1e3 / statistics.median(rates)
+    busy, n_launch, by_kernel = device_profile(lambda: solve(s0, us), 3)
+    profiled = {}
+    for name, tag in (("K1", "substep_kernel"), ("K3", "rollout_feedback_kernel"),
+                      ("K4", "riccati_kernel")):
+        t, n = map(sum, zip(*(v for key, v in by_kernel.items() if tag in key)))
+        profiled[name] = t / n
+        log("ilqr", f"{name} ({tag}): {t:.3f} ms per solve over {n:.0f} launches, "
+                    f"{1e3 * t / n:.2f} us per launch on the device")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    log("ilqr", f"profile of 3 solves: device busy {busy:.3f} ms per solve ({busy / wall:.1%} "
+                f"of the unprofiled {wall:.1f} ms), {n_launch:.0f} kernel launches per solve; "
+                f"largest kernels (ms per solve): "
+                + ", ".join(f"{name[:40]} {t:.3f}" for name, (t, _) in top))
 
     plain = ilqr.make_ilqr_solver(model, cfg, cost_xu, quad_xu=quad_xu, ops=ilqr.PLAIN_OPS)
     t0 = time.perf_counter()
@@ -652,7 +671,7 @@ def phase_ilqr(model):
           1e-4 + 1e-3 * float(wu.abs().max()))
     check("K3", f"kernel vs plain at B={len(cfg.alphas)} H={H}: xs", err_x,
           5e-3 + 1e-3 * float(wx.abs().max()))
-    k3 = dict(max_abs_err=max(err_u, err_x),
+    k3 = dict(max_abs_err=max(err_u, err_x), profiled_ms=profiled["K3"],
               ms=cuda_ms(lambda: rollout_feedback_cuda.rollout_feedback(*fb_args), 10),
               plain_ms=cuda_ms(lambda: rollout_feedback_cuda.rollout_feedback_reference(*fb_args),
                                2))
@@ -662,7 +681,7 @@ def phase_ilqr(model):
     log("K3", f"B={B} H={H}: kernel {k3['ms']:.4f} ms, plain {k3['plain_ms']:.2f} ms, "
               f"bound {k3['bound'][0]:.6f} ms ({k3['bound'][1]})")
 
-    k4 = dict(max_abs_err=k4_err)
+    k4 = dict(max_abs_err=k4_err, profiled_ms=profiled["K4"])
     for (h, n_, m_) in ((50, 20, 10), (100, 40, 20)):
         prob = [torch.as_tensor(a, device=DEV) for a in riccati_cuda.random_problem(3, h, n_, m_)]
         got = riccati_cuda.riccati_sweep(*prob, cfg.reg, lam_extra=lam)
@@ -1011,7 +1030,7 @@ def main():
     log("build", f"{len(mods)} libraries built in parallel and loaded in "
                  f"{time.perf_counter() - t0:.2f} s "
                  f"({', '.join(f'{k} {v[0]:.2f} s' for k, v in ready.items())})")
-    for m in mods[4:]:  # ptxas's registers, stack and spills of K5-K8
+    for m in mods:  # ptxas's registers, stack and spills of every kernel
         for line in ready[m.LIBRARY[0]][1].splitlines():
             if "entry function" in line or "stack frame" in line or "Used" in line:
                 log("build", line.strip())
@@ -1067,7 +1086,7 @@ def main():
     # the row's own numbers are the main path's; a second path or shape
     # (K1's iLQR probes, the torso, K7 at n = 20, K8's other variants) sits
     # under a key of its own, as does the device time per launch that the
-    # profiler read on the staged route (profiled_ms)
+    # profiler read on the staged route and in the iLQR solve (profiled_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     extra = ("ilqr", "torso", "n20", "variants", "k4_ms", "profiled_ms")
     print(json.dumps({"kernels": [{

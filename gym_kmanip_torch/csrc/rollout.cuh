@@ -1,12 +1,10 @@
-// Device functions of the two whole-horizon rollout kernels, one rollout
-// per thread, built on substep_core (substep.cuh):
-//   rollout_pick_thread      - the (H-step) rollout and the cube-pick cost
-//                              (pallas_substep.py::_rollout_pick_kernel with
-//                              _pick_cost_row and _table_touch_row);
-//   rollout_feedback_thread  - the iLQR feedback rollout for one step size
-//                              (pallas_substep.py::_rollout_feedback_kernel).
-// Kept in a header behind __device__ only, so the host test harness
-// compiles them as C++ and holds them to their plain PyTorch versions.
+// Device functions of the whole-horizon pick-cost rollout kernel (K2), one
+// rollout per thread, built on substep_core (substep.cuh):
+// rollout_pick_thread runs the (H-step) rollout and the cube-pick cost
+// (pallas_substep.py::_rollout_pick_kernel with _pick_cost_row and
+// _table_touch_row). Kept in a header behind __device__ only, so the host
+// test harness compiles it as C++ and holds it to its plain PyTorch
+// version.
 #pragma once
 
 #include "substep.cuh"
@@ -123,63 +121,6 @@ __device__ float rollout_pick_thread(int k, const ModelView<NQ, T>& m, const Ste
     total = total + pick_cost_step<NQ, T>(m, spec, contact, q, v, cube, u, touch, x, qq);
   }
   return total;
-}
-
-// Step size b of the iLQR feedback rollout on the reduced state
-// x = [qpos, qvel]: for each control step h,
-//   u = clip(us_nom[h] + alpha_b ks[h] + Ks[h] (x - xs_nom[h]), lo, hi)
-// then n_substeps contact-free substeps with implicit actuation, the cube
-// reset to cube0 at every control step. Writes xs_out[b] (H, 2NQ), the
-// post-step states, and us_out[b] (H, nu), the controls as applied.
-template <int NQ, int T>
-__device__ void rollout_feedback_thread(
-    int b, const ModelView<NQ, T>& m, const StepConsts& c, int n_substeps, int H,
-    const float* __restrict__ alphas, const float* __restrict__ x0,
-    const float* __restrict__ cube0, const float* __restrict__ xs_nom,
-    const float* __restrict__ us_nom, const float* __restrict__ ks,
-    const float* __restrict__ Ks, const float* __restrict__ ctrl_lo,
-    const float* __restrict__ ctrl_hi, float* __restrict__ xs_out,
-    float* __restrict__ us_out) {
-  constexpr int N = 2 * NQ;
-  const int nu = m.nu();
-  const float alpha = alphas[b];
-  float q[NQ], v[NQ], u[NQ], dx[N];
-  for (int i = 0; i < NQ; ++i) {
-    q[i] = x0[i];
-    v[i] = x0[NQ + i];
-    u[i] = 0.f;
-  }
-  bool touch[T];
-  V3 x[NQ];
-  Q4 qq[NQ];
-  for (int h = 0; h < H; ++h) {
-    const float* xn = xs_nom + (long)h * N;
-    for (int j = 0; j < NQ; ++j) {
-      dx[j] = q[j] - xn[j];
-      dx[NQ + j] = v[j] - xn[NQ + j];
-    }
-    for (int i = 0; i < nu; ++i) {
-      const float* Ki = Ks + ((long)h * nu + i) * N;
-      // u_nom + alpha k + K dx in the reference's order: the small feedback
-      // sum first, then one add to the feedforward term.
-      float fb = 0.f;
-      for (int j = 0; j < N; ++j) fb = fb + Ki[j] * dx[j];
-      u[i] = clampf((us_nom[h * nu + i] + alpha * ks[h * nu + i]) + fb, ctrl_lo[i], ctrl_hi[i]);
-    }
-    Cube cube{{cube0[0], cube0[1], cube0[2]},
-              {cube0[3], cube0[4], cube0[5], cube0[6]},
-              {cube0[7], cube0[8], cube0[9]},
-              {cube0[10], cube0[11], cube0[12]}};
-    for (int s = 0; s < n_substeps; ++s)
-      substep_core<NQ, T>(m, c, false, true, q, v, u, cube, touch, x, qq);
-    float* xo = xs_out + ((long)b * H + h) * N;
-    for (int j = 0; j < NQ; ++j) {
-      xo[j] = q[j];
-      xo[NQ + j] = v[j];
-    }
-    float* uo = us_out + ((long)b * H + h) * nu;
-    for (int i = 0; i < nu; ++i) uo[i] = u[i];
-  }
 }
 
 }  // namespace kmanip

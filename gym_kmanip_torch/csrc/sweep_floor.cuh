@@ -1,10 +1,11 @@
 // Device code of the Riccati step's floor experiment: the backward sweep
 // cut down to seven cumulative variants, to bisect what one step of the
 // sweep costs on the card. Follows the JAX package's Pallas experiment
-// tools/exp_sweep_floor.py::_kernel variant for variant, on the Riccati
-// sweep kernel's block primitives (riccati.cuh: one block, the value state
-// W = [Vx | Vxx] in shared memory, block_mm_tn and the same element-per-
-// thread loops and barriers), so the floors it reports are K4's floors.
+// tools/exp_sweep_floor.py::_kernel variant for variant, on the block
+// primitives of the Riccati sweep kernel as it was first ported (one block,
+// the value state W = [Vx | Vxx] in shared memory, block_mm_tn and
+// element-per-thread loops with a barrier after each), so the floors it
+// reports are that design's floors.
 // Written against a thread index, a thread count and a barrier, so the
 // host test harness runs it as C++ with one thread and a no-op barrier.
 //
@@ -25,9 +26,22 @@
 // (the Jacobi gains of the experiment, not K4's Cholesky solve).
 #pragma once
 
-#include "riccati.cuh"
+#include "team.cuh"
 
 namespace kmanip {
+
+// out[r * ldo + c] = sum_i A[i * lda + r] * B[i * ldb + c] for r < R, c < C,
+// i < I (A^T B), in block-shared memory: one output element per thread at a
+// time, its dot product summed in order. The caller places the barrier.
+__device__ inline void block_mm_tn(int tid, int nthr, int R, int C, int I, const float* A,
+                                   int lda, const float* B, int ldb, float* out, int ldo) {
+  for (int e = tid; e < R * C; e += nthr) {
+    const int r = e / C, c = e % C;
+    float s = 0.f;
+    for (int i = 0; i < I; ++i) s = s + A[i * lda + r] * B[i * ldb + c];
+    out[r * ldo + c] = s;
+  }
+}
 
 enum FloorVariant {
   FLOOR_LOOP = 0,

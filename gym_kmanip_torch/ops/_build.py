@@ -49,8 +49,8 @@ def find_nvcc() -> str:
     return path
 
 
-def _digest(sources, headers) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources, headers, flags=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for name in sorted(sources + headers):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode())
@@ -58,22 +58,23 @@ def _digest(sources, headers) -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(name: str, sources, headers) -> str:
-    """Path of the built library for `sources`, building it if needed."""
-    return _build(name, sources, headers)[0]
+def library_path(name: str, sources, headers, flags=()) -> str:
+    """Path of the built library for `sources`, building it if needed;
+    `flags` are passed to nvcc after NVCC_FLAGS."""
+    return _build(name, sources, headers, flags)[0]
 
 
-def _build(name: str, sources, headers):
+def _build(name: str, sources, headers, flags=()):
     """(library path, nvcc's stderr); the stderr is empty if the library
     was built already."""
-    out = os.path.join(BUILD_DIR, f"{name}_{_digest(sources, headers)}.so")
+    out = os.path.join(BUILD_DIR, f"{name}_{_digest(sources, headers, flags)}.so")
     if os.path.exists(out):
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
                *(os.path.join(CSRC_DIR, s) for s in sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -34,7 +34,8 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import _check
 
 SOURCES = ("riccati.cu",)
-HEADERS = ("riccati.cuh",)
+HEADERS = ("riccati.cuh", "team.cuh")
+MAX_M = 32  # the kernel factors Quu in one warp, lanes over rows
 LIBRARY = ("riccati", SOURCES, HEADERS)
 PIVOT_FLOOR = 1e-5
 
@@ -43,7 +44,11 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library(*LIBRARY)
+    return _bind(_build.load_library(*LIBRARY))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point's argument types on a loaded library."""
     lib.kmanip_riccati.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -79,6 +84,8 @@ def riccati_sweep(A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg: float, lam_extr
         raise ValueError(f"A and B must be (H, n, n) and (H, n, m), got "
                          f"{tuple(A.shape)} and {tuple(B.shape)}")
     H, n, m = A.shape[0], A.shape[1], B.shape[2]
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"the kernel takes 1 to {MAX_M} controls, not {m}")
     for name, x, shape in (("A", A, (H, n, n)), ("B", B, (H, n, m)), ("cx", cx, (H, n)),
                            ("cu", cu, (H, m)), ("cxx", cxx, (H, n, n)),
                            ("cuu", cuu, (H, m, m)), ("cux", cux, (H, m, n)),
@@ -130,7 +137,8 @@ def chol_solve_dropping(Q: torch.Tensor, RHS: torch.Tensor, lam) -> torch.Tensor
     equilibration to a unit diagonal (the diagonal includes lam), a
     right-looking Cholesky that drops pivots at or below PIVOT_FLOOR (zero
     in that direction), and the two substitutions. The plain version of
-    `chol_solve_dropping` in csrc/riccati.cuh; no host sync."""
+    `team_factor` and `team_solve_cols` in csrc/riccati.cuh; no host
+    sync."""
     m = Q.shape[-1]
     dsc = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Q) + lam, min=1e-30))
     S = dsc[:, None] * Q * dsc[None, :]

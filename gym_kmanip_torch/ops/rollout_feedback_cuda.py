@@ -32,7 +32,7 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import SUPPORTED, _check, _model_buffers
 
 SOURCES = ("rollout_feedback.cu",)
-HEADERS = ("rollout.cuh", "substep.cuh")
+HEADERS = ("feedback_warp.cuh", "substep.cuh", "team.cuh")
 LIBRARY = ("rollout_feedback", SOURCES, HEADERS)
 
 _P = ctypes.c_void_p
@@ -40,11 +40,15 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library(*LIBRARY)
+    return _bind(_build.load_library(*LIBRARY))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point's argument types on a loaded library."""
     lib.kmanip_rollout_feedback.argtypes = [
         ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_double,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ]
     lib.kmanip_rollout_feedback.restype = ctypes.c_int
     return lib
@@ -92,7 +96,7 @@ def rollout_feedback(model: RobotModel, x0: torch.Tensor, cube0: torch.Tensor,
         us = torch.empty((B, H, nu), dtype=torch.float32, device=device)
         rc = _library().kmanip_rollout_feedback(
             nq, T, model_f.data_ptr(), model_i.data_ptr(), float(dt), int(n_substeps), B, H,
-            *(x.data_ptr() for x in (alphas, x0, cube0, xs_nom, us_nom, ks, Ks,
+            *(x.data_ptr() for x in (alphas, x0, xs_nom, us_nom, ks, Ks,
                                      t.ctrl_lo, t.ctrl_hi, xs, us)),
             torch.cuda.current_stream(device).cuda_stream,
         )

@@ -30,7 +30,7 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import _check
 
 SOURCES = ("sweep_floor.cu",)
-HEADERS = ("sweep_floor.cuh", "riccati.cuh")
+HEADERS = ("sweep_floor.cuh", "team.cuh")
 LIBRARY = ("sweep_floor", SOURCES, HEADERS)
 # in the order of csrc/sweep_floor.cuh's FloorVariant
 VARIANTS = ("loop", "load1", "load1nostore", "mem", "gemm", "trans", "gersh")

@@ -1,0 +1,135 @@
+"""Cycles per step, phase by phase, of the feedback rollout (K3) and the
+Riccati sweep (K4) on the card.
+
+    python -m gym_kmanip_torch.tools.kernel_phases
+
+Builds the two kernels again with a prelude that turns their phase marks
+(KMANIP_PHASE in csrc/feedback_warp.cuh and csrc/riccati.cuh; no-ops in the
+normal build) into clock64 counters kept by thread 0 of block 0: each mark
+adds the cycles since the mark before to its phase. It runs them through
+their wrappers at the main path's shapes (K3: the solo arm, B=6 step sizes,
+H=50, seeded nominal and gains; K4: the seeded problems at (50, 20, 10) and
+(100, 40, 20)) and prints each phase's mean cycles per step. A mark costs a
+few shared-memory operations on thread 0; the kernels' times are
+chip_smoke.py's. Needs nvcc and a CUDA device; exits non-zero without one.
+"""
+
+import ctypes
+import hashlib
+import os
+import sys
+
+import numpy as np
+import torch
+
+from gym_kmanip_torch.dynamics.state import init_state
+from gym_kmanip_torch.models import get_model
+from gym_kmanip_torch.ops import _build, riccati_cuda, rollout_feedback_cuda
+
+N_PHASES = 16
+PRELUDE = r"""
+#include <cuda_runtime.h>
+__device__ long long kmanip_phase_cycles[16];
+__shared__ long long kmanip_phase_acc[16];
+__shared__ long long kmanip_phase_last;
+#define KMANIP_PHASE_START() do { if (threadIdx.x == 0) { \
+  for (int p_ = 0; p_ < 16; ++p_) kmanip_phase_acc[p_] = 0; \
+  kmanip_phase_last = clock64(); } } while (0)
+#define KMANIP_PHASE(k) do { if (threadIdx.x == 0) { const long long n_ = clock64(); \
+  kmanip_phase_acc[k] += n_ - kmanip_phase_last; kmanip_phase_last = n_; } } while (0)
+#define KMANIP_PHASE_STOP() do { if (threadIdx.x == 0 && blockIdx.x == 0) \
+  for (int p_ = 0; p_ < 16; ++p_) kmanip_phase_cycles[p_] = kmanip_phase_acc[p_]; } while (0)
+extern "C" int kmanip_phase_read(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, kmanip_phase_cycles, sizeof(kmanip_phase_cycles));
+}
+"""
+K3_PHASES = ("feedback law", "FK", "loads and Jacobian columns", "mass matrix",
+             "backward pass and torques", "factor", "solves and constraints", "integration")
+K4_PHASES = ("wait and barrier", "P1 GW", "P2 Q blocks", "P3 factor", "P4 gains and V",
+             "P5 value update")
+
+
+def instrumented(module, name):
+    """The wrapper module's library built with the phase prelude and bound
+    like the normal one; also binds kmanip_phase_read."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    prelude = os.path.join(_build.BUILD_DIR,
+                           f"phase_prelude_{hashlib.sha256(PRELUDE.encode()).hexdigest()[:8]}.cuh")
+    if not os.path.exists(prelude):
+        with open(prelude, "w") as f:
+            f.write(PRELUDE)
+    path = _build.library_path(f"{name}_phases", list(module.SOURCES), list(module.HEADERS),
+                               ("-include", prelude))
+    lib = module._bind(ctypes.CDLL(path))
+    lib.kmanip_phase_read.argtypes = [ctypes.c_void_p]
+    lib.kmanip_phase_read.restype = ctypes.c_int
+    return lib
+
+
+def cycles(module, lib, fn, steps, runs=3):
+    """Mean cycles per step of each phase in the last of `runs` calls of
+    fn, which launches the module's kernel (through `lib`)."""
+    saved = module._library
+    module._library = lambda: lib
+    try:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        module._library = saved
+    out = np.zeros(N_PHASES, np.int64)
+    rc = lib.kmanip_phase_read(out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"reading the phase counters failed: cudaError_t {rc}")
+    return out / steps
+
+
+def k3_phases(device, H=50):
+    m = get_model("solo_arm")
+    s0 = init_state(m, device=device)
+    rng = np.random.RandomState(5)
+    n, nu = 2 * m.nq, m.nu
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    x0 = torch.cat([s0.qpos, s0.qvel])
+    cube0 = torch.cat([s0.cube_pos, s0.cube_quat, s0.cube_linvel, s0.cube_angvel])
+    args = (x0, cube0, x0[None] + t(0.002 * rng.randn(H, n)),
+            t(m.home_qpos[:nu] + 0.01 * rng.randn(H, nu)), t(0.003 * rng.randn(H, nu)),
+            t(0.005 * rng.randn(H, nu, n)), t([1.0, 0.6, 0.3, 0.1, 0.03, 0.01]))
+    lib = instrumented(rollout_feedback_cuda, "rollout_feedback")
+    c = cycles(rollout_feedback_cuda, lib,
+               lambda: rollout_feedback_cuda.rollout_feedback(m, *args), H)
+    return dict(zip(K3_PHASES, c))
+
+
+def k4_phases(device, widths=((50, 20, 10), (100, 40, 20))):
+    lib = instrumented(riccati_cuda, "riccati")
+    lam = torch.zeros((), device=device)
+    out = {}
+    for h, n, m in widths:
+        prob = [torch.as_tensor(a, device=device) for a in riccati_cuda.random_problem(3, h, n, m)]
+        c = cycles(riccati_cuda, lib,
+                   lambda: riccati_cuda.riccati_sweep(*prob, 1e-6, lam_extra=lam), h)
+        out[(h, n, m)] = dict(zip(K4_PHASES, c))
+    return out
+
+
+def line(phases):
+    total = sum(phases.values())
+    return ", ".join(f"{k} {v:.0f}" for k, v in phases.items()) + f"; sum {total:.0f}"
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("kernel_phases: no CUDA device")
+    device = torch.device("cuda", 0)
+    print(f"{torch.cuda.get_device_name(0)}; clock64 cycles per step, thread 0 of block 0")
+    print(f"K3 solo B=6 H=50: {line(k3_phases(device))}")
+    for widths, phases in k4_phases(device).items():
+        print(f"K4 {widths}: {line(phases)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -126,7 +126,9 @@ def float64_twin(m, device, monkeypatch):
 @pytest.mark.parametrize("name", ["solo_arm", "torso"])
 def test_rollout_feedback_kernel_matches_plain_on_cuda(cuda, name):
     """K3 against `rollout_feedback_reference` at B=6, H=8: us 2e-5 / 1e-4,
-    xs 5e-4 / 1e-3 (tests/test_pallas.py:377-380).
+    xs 5e-4 / 1e-3 (tests/test_pallas.py:377-380); also at B=1 with zero
+    gains and a zero nominal state, the launch shape of the iLQR solve's
+    nominal rollout.
 
     Random feedback gains make this rollout ill-conditioned (one ulp of x0
     moves the plain version's us past the band; the host build's test in
@@ -163,6 +165,14 @@ def test_rollout_feedback_kernel_matches_plain_on_cuda(cuda, name):
     assert kernel64 <= 2 * plain64
     np.testing.assert_allclose(us.cpu().numpy(), wus.cpu().numpy(), atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(xs.cpu().numpy(), wxs.cpu().numpy(), atol=5e-4, rtol=1e-3)
+    z = x0.new_zeros
+    nominal = [x0, cube0, z((H, n)), args[3], z((H, nu)), z((H, nu, n)), x0.new_ones(1)]
+    xs1, us1 = rf.rollout_feedback(m, *nominal)
+    wxs1, wus1 = rf.rollout_feedback_reference(m, *nominal)
+    torch.cuda.synchronize()
+    assert rf.rollout_feedback.launches == before + 2 and xs1.shape == (1, H, n)
+    np.testing.assert_allclose(us1.cpu().numpy(), wus1.cpu().numpy(), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(xs1.cpu().numpy(), wxs1.cpu().numpy(), atol=5e-4, rtol=1e-3)
     bad = list(args)
     bad[5] = args[5].double()
     with pytest.raises(TypeError):
@@ -178,15 +188,18 @@ def test_rollout_feedback_kernel_matches_plain_on_cuda(cuda, name):
         rf.rollout_feedback(m, *bad)
 
 
-@pytest.mark.parametrize("H,n,m", [(50, 20, 10), (100, 40, 20)])
-def test_riccati_kernel_matches_plain_on_cuda(cuda, H, n, m):
-    """K4 against `riccati_sweep_reference` at the solo and torso widths,
-    lam_extra 0 and 1e-3: both full float32, summed in other orders, held
-    at 1e-4 of the largest gain."""
+@pytest.mark.parametrize("H,n,m,indefinite", [(50, 20, 10, False), (100, 40, 20, False),
+                                              (6, 7, 3, True)])
+def test_riccati_kernel_matches_plain_on_cuda(cuda, H, n, m, indefinite):
+    """K4 against `riccati_sweep_reference` at the solo and torso widths
+    (the kernel's two instantiations) and on the indefinite seeded problem
+    whose lift and pivot drops the one-warp factor must reproduce (its
+    runtime-width code), lam_extra 0 and 1e-3: both full float32, summed in
+    other orders, held at 1e-4 of the largest gain."""
     from gym_kmanip_torch.ops import riccati_cuda as rc
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    prob = [torch.as_tensor(a, device=cuda) for a in rc.random_problem(4, H, n, m)]
+    prob = [torch.as_tensor(a, device=cuda) for a in rc.random_problem(4, H, n, m, indefinite)]
     for lam_extra in (0.0, 1e-3):
         lam = torch.tensor(lam_extra, device=cuda)
         before = rc.riccati_sweep.launches

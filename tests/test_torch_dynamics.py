@@ -410,12 +410,16 @@ def test_substep_cuda_imports_without_nvcc(solo):
 
 
 _HOST_HARNESS = r"""
+#include <pthread.h>
+
 #include <cmath>
+#include <thread>
 #include <vector>
 #define __device__
 #define __forceinline__ inline
 #include "substep.cuh"
 #include "rollout.cuh"
+#include "feedback_warp.cuh"
 #include "riccati.cuh"
 #include "staged.cuh"
 #include "sweep_floor.cuh"
@@ -466,47 +470,214 @@ extern "C" int host_rollout_pick(int nq, int T, const float* mf, const int* mi, 
   return -1;
 }
 
-extern "C" int host_rollout_feedback(int nq, int T, const float* mf, const int* mi, double dt,
-    int n_substeps, int B, int H, const float* alphas, const float* x0, const float* cube0,
-    const float* xs_nom, const float* us_nom, const float* ks, const float* Ks,
-    const float* lo, const float* hi, float* xs, float* us) {
+// the cooperative kernels' device code on host threads: a team of S
+// threads behind one barrier (S = 1: no barrier), as one warp on the card
+struct HostBarrier {
+  pthread_barrier_t* bar;
+  void operator()() const {
+    if (bar) pthread_barrier_wait(bar);
+  }
+};
+
+template <int S>
+struct HostTeam {
+  static constexpr int SIZE = S;
+  int lane;
+  pthread_barrier_t* bar;
+  float* slot;  // S floats shared by the team
+  void sync() const {
+    if (bar) pthread_barrier_wait(bar);
+  }
+  float bcast(float v, int src) const {
+    if (!bar) return v;
+    sync();
+    if (lane == src) slot[0] = v;
+    sync();
+    return slot[0];
+  }
+  float max(float v) const { return reduce(v, true); }
+  float min(float v) const { return reduce(v, false); }
+  float reduce(float v, bool is_max) const {
+    if (!bar) return v;
+    sync();
+    slot[lane] = v;
+    sync();
+    float r = slot[0];
+    for (int i = 1; i < S; ++i) r = is_max ? std::fmax(r, slot[i]) : std::fmin(r, slot[i]);
+    return r;
+  }
+};
+
+// f(thread index, barrier or nullptr) on S threads
+template <int S, class F>
+void run_team(F f) {
+  if (S == 1) {
+    f(0, nullptr);
+    return;
+  }
+  pthread_barrier_t bar;
+  pthread_barrier_init(&bar, nullptr, S);
+  std::vector<std::thread> threads;
+  for (int t = 0; t < S; ++t) threads.emplace_back([&, t] { f(t, &bar); });
+  for (auto& th : threads) th.join();
+  pthread_barrier_destroy(&bar);
+}
+
+// K3: the team rollout (csrc/feedback_warp.cuh), one team per step size
+template <int NQ, int T, int S>
+void feedback_team(const float* mf, const int* mi, const kmanip::StepConsts& c, int n_sub,
+                   int B, int H, const float* alphas, const float* x0, const float* xs_nom,
+                   const float* us_nom, const float* ks, const float* Ks, const float* lo,
+                   const float* hi, float* xs, float* us) {
+  using namespace kmanip;
+  for (int b = 0; b < B; ++b) {
+    std::vector<FeedbackShared<NQ, T>> s(1);
+    float slot[S];
+    run_team<S>([&](int lane, pthread_barrier_t* bar) {
+      rollout_feedback_team<NQ, T>(HostTeam<S>{lane, bar, slot}, s[0], b, mf, mi, c, n_sub, H,
+                                   alphas, x0, xs_nom, us_nom, ks, Ks, lo, hi, xs, us);
+    });
+  }
+}
+
+// The same rollout, one step size at a time over substep_core: the serial
+// order every sum of the team rollout keeps.
+template <int NQ, int T>
+void feedback_serial(int b, const kmanip::ModelView<NQ, T>& m, const kmanip::StepConsts& c,
+                     int n_sub, int H, const float* alphas, const float* x0, const float* cube0,
+                     const float* xs_nom, const float* us_nom, const float* ks, const float* Ks,
+                     const float* lo, const float* hi, float* xs_out, float* us_out) {
+  using namespace kmanip;
+  constexpr int N = 2 * NQ;
+  const int nu = m.nu();
+  float q[NQ], v[NQ], u[NQ], dx[N];
+  for (int i = 0; i < NQ; ++i) {
+    q[i] = x0[i];
+    v[i] = x0[NQ + i];
+    u[i] = 0.f;
+  }
+  bool touch[T];
+  V3 x[NQ];
+  Q4 qq[NQ];
+  for (int h = 0; h < H; ++h) {
+    for (int j = 0; j < NQ; ++j) {
+      dx[j] = q[j] - xs_nom[h * N + j];
+      dx[NQ + j] = v[j] - xs_nom[h * N + NQ + j];
+    }
+    for (int i = 0; i < nu; ++i) {
+      const float* Ki = Ks + (h * nu + i) * N;
+      float fb = 0.f;
+      for (int j = 0; j < N; ++j) fb = fb + Ki[j] * dx[j];
+      u[i] = clampf((us_nom[h * nu + i] + alphas[b] * ks[h * nu + i]) + fb, lo[i], hi[i]);
+    }
+    Cube cube{{cube0[0], cube0[1], cube0[2]}, {cube0[3], cube0[4], cube0[5], cube0[6]},
+              {cube0[7], cube0[8], cube0[9]}, {cube0[10], cube0[11], cube0[12]}};
+    for (int s = 0; s < n_sub; ++s) substep_core<NQ, T>(m, c, false, true, q, v, u, cube, touch, x, qq);
+    for (int j = 0; j < NQ; ++j) {
+      xs_out[(b * H + h) * N + j] = q[j];
+      xs_out[(b * H + h) * N + NQ + j] = v[j];
+    }
+    for (int i = 0; i < nu; ++i) us_out[(b * H + h) * nu + i] = u[i];
+  }
+}
+
+// threads = 1 or 4: the team rollout; threads = 0: the serial rollout
+extern "C" int host_rollout_feedback(int threads, int nq, int T, const float* mf, const int* mi,
+    double dt, int n_sub, int B, int H, const float* alphas, const float* x0,
+    const float* cube0, const float* xs_nom, const float* us_nom, const float* ks,
+    const float* Ks, const float* lo, const float* hi, float* xs, float* us) {
   using namespace kmanip;
   const StepConsts c = make_consts(dt);
-  if (nq == 10 && T == 2) {
-    ModelView<10, 2> m{mf, mi};
-    for (int b = 0; b < B; ++b)
-      rollout_feedback_thread<10, 2>(b, m, c, n_substeps, H, alphas, x0, cube0, xs_nom,
-                                     us_nom, ks, Ks, lo, hi, xs, us);
-    return 0;
+#define KMANIP_FEEDBACK(NQ_, T_)                                                              \
+  if (nq == NQ_ && T == T_) {                                                                 \
+    if (threads == 0) {                                                                       \
+      ModelView<NQ_, T_> m{mf, mi};                                                           \
+      for (int b = 0; b < B; ++b)                                                             \
+        feedback_serial<NQ_, T_>(b, m, c, n_sub, H, alphas, x0, cube0, xs_nom, us_nom, ks,    \
+                                 Ks, lo, hi, xs, us);                                         \
+      return 0;                                                                               \
+    }                                                                                         \
+    if (threads == 1)                                                                         \
+      feedback_team<NQ_, T_, 1>(mf, mi, c, n_sub, B, H, alphas, x0, xs_nom, us_nom, ks, Ks,   \
+                                lo, hi, xs, us);                                              \
+    else if (threads == 4)                                                                    \
+      feedback_team<NQ_, T_, 4>(mf, mi, c, n_sub, B, H, alphas, x0, xs_nom, us_nom, ks, Ks,   \
+                                lo, hi, xs, us);                                              \
+    else                                                                                      \
+      return -1;                                                                              \
+    return 0;                                                                                 \
   }
-  if (nq == 20 && T == 4) {
-    ModelView<20, 4> m{mf, mi};
-    for (int b = 0; b < B; ++b)
-      rollout_feedback_thread<20, 4>(b, m, c, n_substeps, H, alphas, x0, cube0, xs_nom,
-                                     us_nom, ks, Ks, lo, hi, xs, us);
-    return 0;
-  }
+  KMANIP_FEEDBACK(10, 2)
+  KMANIP_FEEDBACK(20, 4)
+#undef KMANIP_FEEDBACK
   return -1;
 }
 
-// the Riccati sweep's block code with one thread and a no-op barrier
+// the single-threaded block code of the floor experiment
 struct NoSync {
   void operator()() const {}
 };
 
-extern "C" void host_riccati(int H, int n, int m, double reg, float lam_extra, const float* A,
-    const float* B, const float* cx, const float* cu, const float* cxx, const float* cuu,
-    const float* cux, const float* VxT, const float* VxxT, float* ks, float* Ks) {
+// K4: the sweep's block code on S threads, which form one team
+template <int NT, int MT, int TR, int TC, int S>
+void riccati_host(int H, int n, int m, float reg, float lam_extra, const float* A,
+                  const float* B, const float* cx, const float* cu, const float* cxx,
+                  const float* cuu, const float* cux, const float* VxT, const float* VxxT,
+                  float* ks, float* Ks) {
   std::vector<float> sm(kmanip::riccati_layout(n, m).total);
-  kmanip::riccati_sweep_block(0, 1, NoSync{}, H, n, m, (float)reg, lam_extra, A, B, cx, cu,
-                              cxx, cuu, cux, VxT, VxxT, ks, Ks, sm.data());
+  float slot[S];
+  run_team<S>([&](int tid, pthread_barrier_t* bar) {
+    kmanip::riccati_sweep_block<NT, MT, TR, TC>(tid, S, HostTeam<S>{tid, bar, slot},
+                                                HostBarrier{bar}, H, n, m, reg, lam_extra, A,
+                                                B, cx, cu, cxx, cuu, cux, VxT, VxxT, ks, Ks,
+                                                sm.data());
+  });
 }
 
+template <int S>
+void riccati_widths(int H, int n, int m, float reg, float lam_extra, const float* A,
+                    const float* B, const float* cx, const float* cu, const float* cxx,
+                    const float* cuu, const float* cux, const float* VxT, const float* VxxT,
+                    float* ks, float* Ks) {
+  if (n == 20 && m == 10)  // the kernel's instantiations (csrc/riccati.cu)
+    riccati_host<20, 10, 2, 2, S>(H, n, m, reg, lam_extra, A, B, cx, cu, cxx, cuu, cux, VxT,
+                                  VxxT, ks, Ks);
+  else if (n == 40 && m == 20)
+    riccati_host<40, 20, 4, 2, S>(H, n, m, reg, lam_extra, A, B, cx, cu, cxx, cuu, cux, VxT,
+                                  VxxT, ks, Ks);
+  else
+    riccati_host<0, 0, 2, 2, S>(H, n, m, reg, lam_extra, A, B, cx, cu, cxx, cuu, cux, VxT,
+                                VxxT, ks, Ks);
+}
+
+extern "C" int host_riccati(int threads, int H, int n, int m, double reg, float lam_extra,
+    const float* A, const float* B, const float* cx, const float* cu, const float* cxx,
+    const float* cuu, const float* cux, const float* VxT, const float* VxxT, float* ks,
+    float* Ks) {
+  if (threads == 1)
+    riccati_widths<1>(H, n, m, (float)reg, lam_extra, A, B, cx, cu, cxx, cuu, cux, VxT, VxxT,
+                      ks, Ks);
+  else if (threads == 4)
+    riccati_widths<4>(H, n, m, (float)reg, lam_extra, A, B, cx, cu, cxx, cuu, cux, VxT, VxxT,
+                      ks, Ks);
+  else
+    return -1;
+  return 0;
+}
+
+// the factor and both substitutions alone, one thread
 extern "C" void host_chol_solve(int m, int r, const float* Q, float lam, const float* RHS,
     float* X) {
-  std::vector<float> S(m * m), dsc(m), piv(m), keep(m);
-  kmanip::chol_solve_dropping(0, 1, NoSync{}, m, r, Q, lam, RHS, X, S.data(), dsc.data(),
-                              piv.data(), keep.data());
+  std::vector<float> S(m * m), dsc(m), inv(m), keep(m);
+  const HostTeam<1> team{0, nullptr, nullptr};
+  using kmanip::RICCATI_MAX_M;
+  using kmanip::SOLVE_COLS;
+  kmanip::team_factor<RICCATI_MAX_M>(team, m, Q, lam, S.data(), dsc.data(), inv.data(),
+                                     keep.data());
+  for (int c0 = 0; c0 < r; c0 += SOLVE_COLS)
+    kmanip::team_solve_cols<RICCATI_MAX_M>(team, m, c0, r - c0 < SOLVE_COLS ? r - c0 : SOLVE_COLS,
+                                           RHS, X, r, 1.f, S.data(), dsc.data(), inv.data(),
+                                           keep.data(), [](int, const float(&)[SOLVE_COLS]) {});
 }
 
 // the staged route's per-item kernels (csrc/staged.cuh), item by item
@@ -580,7 +751,7 @@ def host_kernel(tmp_path_factory):
     src, lib = d / "host_substep.cpp", d / "host_substep.so"
     src.write_text(_HOST_HARNESS)
     subprocess.run(
-        [cxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+        [cxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC", "-pthread",
          "-I", substep_cuda._build.CSRC_DIR, "-o", str(lib), str(src)],
         check=True, capture_output=True, timeout=120,
     )
@@ -593,11 +764,11 @@ def host_kernel(tmp_path_factory):
     so.host_rollout_pick.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_double] + [
         ctypes.c_int] * 5 + [P] * 5
     so.host_rollout_pick.restype = ctypes.c_int
-    so.host_rollout_feedback.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_double] + [
+    so.host_rollout_feedback.argtypes = [ctypes.c_int] * 3 + [P] * 2 + [ctypes.c_double] + [
         ctypes.c_int] * 3 + [P] * 11
     so.host_rollout_feedback.restype = ctypes.c_int
-    so.host_riccati.argtypes = [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_float] + [P] * 11
-    so.host_riccati.restype = None
+    so.host_riccati.argtypes = [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_float] + [P] * 11
+    so.host_riccati.restype = ctypes.c_int
     so.host_chol_solve.argtypes = [ctypes.c_int] * 2 + [P, ctypes.c_float, P, P]
     so.host_chol_solve.restype = None
     so.host_rnea.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_int] + [P] * 6
@@ -641,10 +812,13 @@ def test_rollout_kernel_sources_match_plain_on_host(host_kernel, name):
     """csrc/rollout.cuh on the host: the pick-cost rollout (K2) against
     `rollout_pick_costs_reference` (H=3 totals at 1e-3, as
     tests/test_torch_mppi.py holds the H=3 rollout), and the feedback
-    rollout (K3) at B=6, H=8 against `rollout_feedback_reference` (us 2e-5
-    / 1e-4, xs 5e-4 / 1e-3, tests/test_pallas.py:377-380) and, as on the
-    card, no farther from the float64 plain rollout than twice the float32
-    plain version."""
+    rollout (K3, csrc/feedback_warp.cuh) at B=6, H=8 on one thread and on a
+    team of four threads behind a barrier: bit for bit the serial rollout
+    over substep_core (every sum keeps its order; also with two substeps
+    per control step), against
+    `rollout_feedback_reference` (us 2e-5 / 1e-4, xs 5e-4 / 1e-3,
+    tests/test_pallas.py:377-380) and, as on the card, no farther from the
+    float64 plain rollout than twice the float32 plain version."""
     m = from_numpy_model(jax_get_model(name))
     nq, nu, T = m.nq, m.nu, len(m.fingertips)
     mf, mi = substep_cuda.pack_model(m)
@@ -677,11 +851,28 @@ def test_rollout_kernel_sources_match_plain_on_host(host_kernel, name):
     Ks = (0.05 * rng.randn(H, nu, n)).astype(np.float32)
     alphas = np.array([1.0, 0.6, 0.3, 0.1, 0.03, 0.01], np.float32)
     lo, hi = t.ctrl_lo.numpy(), t.ctrl_hi.numpy()
-    xs = np.zeros((B, H, n), np.float32)
-    us = np.zeros((B, H, nu), np.float32)
-    assert host_kernel.host_rollout_feedback(
-        nq, T, _ptr(mf), _ptr(mi), 0.02, 1, B, H, *(_ptr(a) for a in (
-            alphas, x0, cube0, xs_nom, us_nom, ks, Ks, lo, hi, xs, us))) == 0
+    runs = {}
+    for threads in (0, 1, 4):  # 0: the serial rollout over substep_core
+        xs = np.zeros((B, H, n), np.float32)
+        us = np.zeros((B, H, nu), np.float32)
+        assert host_kernel.host_rollout_feedback(
+            threads, nq, T, _ptr(mf), _ptr(mi), 0.02, 1, B, H, *(_ptr(a) for a in (
+                alphas, x0, cube0, xs_nom, us_nom, ks, Ks, lo, hi, xs, us))) == 0
+        runs[threads] = xs, us
+    for threads in (1, 4):
+        for got, want in zip(runs[threads], runs[0]):
+            np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32),
+                                          err_msg=f"{threads} thread(s) vs serial")
+    xs, us = runs[4]
+    # two substeps per control step, also bit for bit
+    twice = [[np.zeros((B, H, n), np.float32), np.zeros((B, H, nu), np.float32)]
+             for _ in range(2)]
+    for threads, out in zip((0, 4), twice):
+        assert host_kernel.host_rollout_feedback(
+            threads, nq, T, _ptr(mf), _ptr(mi), 0.01, 2, B, H, *(_ptr(a) for a in (
+                alphas, x0, cube0, xs_nom, us_nom, ks, Ks, lo, hi, *out))) == 0
+    for got, want in zip(*twice):
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     args = [torch.as_tensor(a) for a in (x0, cube0, xs_nom, us_nom, ks, Ks, alphas)]
     wxs, wus = rollout_feedback_cuda.rollout_feedback_reference(m, *args)
     with pytest.MonkeyPatch.context() as mp:
@@ -698,18 +889,23 @@ def test_rollout_kernel_sources_match_plain_on_host(host_kernel, name):
     np.testing.assert_allclose(xs, wxs.numpy(), atol=5e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("H,n,m,indefinite", [(5, 20, 10, False), (6, 7, 3, True)])
+@pytest.mark.parametrize("H,n,m,indefinite", [(5, 20, 10, False), (3, 40, 20, False),
+                                              (6, 7, 3, True)])
 @pytest.mark.parametrize("lam_extra", [0.0, 1e-3])
+@pytest.mark.parametrize("threads", [1, 4])
 def test_riccati_kernel_source_matches_plain_on_host(host_kernel, H, n, m, indefinite,
-                                                     lam_extra):
-    """csrc/riccati.cuh run with one thread and a no-op barrier against
-    `riccati_sweep_reference`: both float32, summed in other orders, held
-    at 1e-4 of the largest gain (each is within ~1e-5 of float64)."""
+                                                     lam_extra, threads):
+    """csrc/riccati.cuh against `riccati_sweep_reference`, at the kernel's
+    two instantiated widths and through its runtime-width code (n=7, m=3),
+    on one thread with a no-op barrier and on four threads behind a barrier
+    (a missing barrier or a bad partition shows there): both float32,
+    summed in other orders, held at 1e-4 of the largest gain (each is
+    within ~1e-5 of float64)."""
     prob = riccati_cuda.random_problem(4, H, n, m, indefinite)
     ks = np.zeros((H, m), np.float32)
     Ks = np.zeros((H, m, n), np.float32)
-    host_kernel.host_riccati(H, n, m, 1e-6, lam_extra, *(_ptr(a) for a in prob),
-                             _ptr(ks), _ptr(Ks))
+    assert host_kernel.host_riccati(threads, H, n, m, 1e-6, lam_extra,
+                                    *(_ptr(a) for a in prob), _ptr(ks), _ptr(Ks)) == 0
     wks, wKs = riccati_cuda.riccati_sweep_reference(*(torch.as_tensor(a) for a in prob), 1e-6,
                                                     lam_extra=lam_extra)
     for g, w in ((ks, wks.numpy()), (Ks, wKs.numpy())):
