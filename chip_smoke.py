@@ -4,8 +4,9 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. build:       compile the eight CUDA libraries from gym_kmanip_torch/csrc,
-                  one nvcc each, all at once; ptxas's registers, stack and
-                  spills of every kernel.
+                  and K1 and K2 with the solo-width team shapes they were
+                  not built with (ALTERNATES), one nvcc each, all at once;
+                  ptxas's registers, stack and spills of every kernel.
   2. K1 substep:  at K=256, random solo-arm states from a seed, in MPC mode
                   (dt=0.02, implicit actuation) and env mode (dt=0.002,
                   explicit): the kernel against its plain PyTorch version
@@ -14,14 +15,16 @@ Phases (any failure raises, and the script exits non-zero):
   3. MPPI:        the solo-arm MPPI pick solve at H=50, K=256 through K1: 20
                   solves with the launch count checked, the kernel route
                   against the plain route on one injected noise draw at
-                  H=4, then solves/s of both routes.
+                  H=4, then solves/s of both routes (the plain route's over
+                  3 x 2 solves).
   4. closed loop: the receding-horizon recipe of bench.py (H=20, K=256,
                   2 iterations, 10 substeps of 2 ms) against the plant
                   `control_step` for 30 steps.
   5. K2 pick:     the whole-horizon pick-cost kernel against its plain
                   version at K=256 (H=1 1e-5, H=3 1e-3, H=50 1e-4 of the
                   largest total) and against the K1 route's totals at H=50;
-                  its time.
+                  its time; the alternate team shapes at H=50, checked and
+                  timed.
   6. fused MPPI:  the fused solve against the K1-route solve on one draw at
                   H=4 (u0 1e-5, J 1e-4, nominal 1e-5); 20 solves at H=50,
                   K=256 with n_iters K2 launches and no K1 launch per solve;
@@ -40,6 +43,13 @@ Phases (any failure raises, and the script exits non-zero):
                   versions on the first iteration's real inputs, K4 also on
                   seeded problems at solo and torso widths; their times.
                   The torso at H=100, once.
+  7b. device times: after every host-bound rate above (the profiles come
+                  after them, as the iLQR phase's does): K1's device time
+                  per launch (torch.profiler) at K=256 with contact and at
+                  K=1500 without, its alternate team shapes checked as in
+                  phase 2 and timed the same way, and a breakdown of 10
+                  fused MPPI solves (device busy, K2's device time per
+                  launch beside its CUDA-event time).
   8. staged MPPI: the staged substep route (engine.substep_staged: K5 FK +
                   RNEA, K6 contacts, K7 SPD solve, torch glue between) at
                   H=50, K=256 through make_mppi_solver: K5, K6 and K7 against
@@ -65,6 +75,7 @@ The kernels line, then the card's name and power limit (nvidia-smi), then
 {"ok": true, "device": {...}}. Exits non-zero without a GPU.
 """
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -115,6 +126,46 @@ WRAPPERS = {
     "K8": sweep_floor_cuda.sweep,
 }
 STAGED = ("K5", "K6", "K7")  # launched by the staged substep route only
+# The team widths and warps per block that K1 and K2 were not built with at
+# solo width (csrc/substep.cu, csrc/rollout_pick.cu): built with -D beside
+# the kernels, checked against the plain versions and timed beside them.
+# KMANIP_SOLO_ONLY leaves out their torso kernels, which these flags do not
+# change.
+ALTERNATES = {
+    "K1": (substep_cuda, {
+        "16 lanes, 4 warps per block": ("-DKMANIP_SOLO_LANES=16", "-DKMANIP_SOLO_ONLY"),
+        "32 lanes, 1 warp per block": ("-DKMANIP_TEAM_WARPS=1", "-DKMANIP_SOLO_ONLY")}),
+    "K2": (rollout_pick_cuda, {
+        "16 lanes, 1 warp per block": ("-DKMANIP_SOLO_LANES=16", "-DKMANIP_SOLO_ONLY"),
+        "32 lanes, 4 warps per block": ("-DKMANIP_TEAM_WARPS=4", "-DKMANIP_SOLO_ONLY")}),
+}
+
+
+def alternate_libraries():
+    """(name, sources, headers, flags) of every alternate build."""
+    return [(f"{mod.LIBRARY[0]}_alt{i}", *mod.LIBRARY[1:], flags)
+            for mod, variants in ALTERNATES.values()
+            for i, flags in enumerate(variants.values())]
+
+
+class built_with:
+    """Routes the launches of kernel `kernel` ("K1" or "K2") to its
+    alternate build `i` of ALTERNATES for as long as it lasts."""
+
+    def __init__(self, kernel, i):
+        mod, variants = ALTERNATES[kernel]
+        name, sources, headers = mod.LIBRARY
+        path = _build.library_path(f"{name}_alt{i}", list(sources), list(headers),
+                                   list(variants.values())[i])
+        self.mod, self.lib = mod, mod._bind(ctypes.CDLL(path))
+
+    def __enter__(self):
+        self.saved = self.mod._library
+        self.mod._library = lambda: self.lib
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._library = self.saved
 
 
 def log(phase, msg):
@@ -298,6 +349,15 @@ def time_substep(tag, model, contact, inputs):
     return ms, plain_ms, b
 
 
+def kernel_device_ms(fn, tag, n=20):
+    """Device ms per launch of the kernels whose name holds `tag` over n
+    calls of fn (torch.profiler): without the wrapper's host time, which
+    bounds back-to-back calls of a kernel of a few tens of microseconds."""
+    _, _, by_kernel = device_profile(fn, n)
+    t, launches = map(sum, zip(*(v for key, v in by_kernel.items() if tag in key)))
+    return t / launches
+
+
 def phase_substep(model):
     inputs = [torch.as_tensor(a, device=DEV)
               for a in substep_cuda.random_inputs(model, K, seed=0)]
@@ -371,9 +431,9 @@ def phase_mppi(model):
 
     rates, ms = solves_per_sec(solver, ms, sim_state)
     plain = make_mppi_solver(model, cfg, cost, substep_fn=engine._substep_torch)
-    plain_rates, _ = solves_per_sec(plain, ms, sim_state, n_solves=5)
+    plain_rates, _ = solves_per_sec(plain, ms, sim_state, n_solves=2, repeats=3)
     log("mppi", f"K1 route: {rate_line(rates)} x 20 solves")
-    log("mppi", f"plain route: {rate_line(plain_rates)} x 5 solves")
+    log("mppi", f"plain route: {rate_line(plain_rates)} x 2 solves")
     return launches["K1"], rates
 
 
@@ -438,10 +498,17 @@ def phase_pick_kernel(model):
     plain_ms = cuda_ms(lambda: rollout_pick_cuda.rollout_pick_costs_reference(model, U, s0), 2)
     flops = K * H * (substep_flops(model, True) + pick_cost_flops(model))
     b = bound(flops, 4 * (K * H * model.nu + 2 * model.nq + 13 + K))
-    log("K2", f"K={K} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-              f"max_abs_err {worst:.3e}, "
-              f"bound {b[0]:.6f} ms ({b[1]})")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b)
+    log("K2", f"K={K} H={H}: kernel {ms:.4f} ms (32 lanes, 1 warp per block), plain "
+              f"{plain_ms:.2f} ms, max_abs_err {worst:.3e}, bound {b[0]:.6f} ms ({b[1]})")
+    teams = {}
+    for i, label in enumerate(ALTERNATES["K2"][1]):
+        with built_with("K2", i):
+            alt_err = max_err(rollout_pick_cuda.rollout_pick_costs(model, U, s0), want)
+            check("K2", f"{label}: kernel vs plain, K={K} H={H}", alt_err, 1e-4 * scale)
+            alt_ms = cuda_ms(lambda: rollout_pick_cuda.rollout_pick_costs(model, U, s0), 20)
+        teams[label] = dict(max_abs_err=alt_err, ms=alt_ms)
+        log("K2", f"{label}: {alt_ms:.4f} ms at K={K} H={H}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b, teams=teams)
 
 
 def phase_fused_mppi(model, k1_rates):
@@ -702,6 +769,61 @@ def phase_ilqr(model):
         if (n_, m_) == (2 * model.nq, model.nu):  # the main path's widths
             k4.update(ms=ms, plain_ms=plain_ms, bound=b)
     return launches, k1, k3, k4
+
+
+def phase_device_times(model, k1, k2, fused_rates):
+    """Device time per launch (torch.profiler) of K1 and K2 on their main
+    paths' shapes, read after every host-bound rate of the MPPI, closed-loop,
+    fused and iLQR phases, as the rates were read before these profiles
+    existed: K1 at K=256 with contact and at K=1500 without (and its
+    alternate team shapes, each first checked against the plain version),
+    and a breakdown of 10 fused MPPI solves with K2's device time per
+    launch. Back-to-back CUDA events of K1 read the wrapper's host time."""
+    inputs = [torch.as_tensor(a, device=DEV)
+              for a in substep_cuda.random_inputs(model, K, seed=0)]
+    probes = [torch.as_tensor(a, device=DEV)
+              for a in substep_cuda.random_inputs(model, 1500, seed=1)]
+
+    def device_ms():
+        return (kernel_device_ms(lambda: substep_cuda.substep_batched(
+                    model, 0.02, True, True, *inputs), "substep_kernel"),
+                kernel_device_ms(lambda: substep_cuda.substep_batched(
+                    model, 0.02, False, True, *probes), "substep_kernel"))
+
+    k1["profiled_ms"], k1["profiled_ms_k1500"] = device_ms()
+    log("K1", f"device time per launch (profiler): {1e3 * k1['profiled_ms']:.2f} us at K={K} "
+              f"with contact, {1e3 * k1['profiled_ms_k1500']:.2f} us at K=1500 without (32 "
+              f"lanes, 4 warps per block)")
+    k1["teams"] = {}
+    for i, label in enumerate(ALTERNATES["K1"][1]):
+        with built_with("K1", i):
+            err = max(compare_substep(f"{label}: K={K} dt={dt} implicit={implicit}", model, dt,
+                                      True, implicit, inputs)
+                      for dt, implicit in ((0.02, True), (0.002, False)))
+            err = max(err, compare_substep(f"{label}: K=1500 contact=False", model, 0.02, False,
+                                           True, probes))
+            alt = device_ms()
+        k1["teams"][label] = dict(max_abs_err=err, profiled_ms=alt[0], profiled_ms_k1500=alt[1])
+        log("K1", f"{label}: device time per launch {1e3 * alt[0]:.2f} us at K={K}, "
+                  f"{1e3 * alt[1]:.2f} us at K=1500")
+
+    # where a fused solve's time goes: device busy against the unprofiled
+    # wall time, and K2's device time per launch inside the solve
+    cfg = MPPIConfig(horizon=H, n_samples=K)
+    solver = make_fused_pick_solver(model, cfg)
+    sim_state = init_state(model, device=DEV)
+    ms = init_mppi(model, cfg, seed=0, device=DEV)
+    ms, _, _ = solver(ms, sim_state)
+    busy, n_launch, by_kernel = device_profile(lambda: solver(ms, sim_state), 10)
+    t, n = map(sum, zip(*(v for key, v in by_kernel.items() if "rollout_pick_kernel" in key)))
+    k2["profiled_ms"] = t / n
+    wall = 1e3 / statistics.median(fused_rates)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:4]
+    log("fused", f"profile of 10 solves: device busy {busy:.3f} ms per solve ({busy / wall:.1%} "
+                 f"of the unprofiled {wall:.3f} ms), {n_launch:.0f} kernel launches per solve; "
+                 f"K2 {1e3 * t / n:.2f} us per launch on the device (CUDA events: "
+                 f"{k2['ms']:.4f} ms); largest kernels (ms per solve): "
+                 + ", ".join(f"{name[:40]} {t_:.4f}" for name, (t_, _) in top))
 
 
 def phase_ilqr_torso():
@@ -1024,16 +1146,24 @@ def main():
     mods = (substep_cuda, rollout_pick_cuda, rollout_feedback_cuda, riccati_cuda, rnea_cuda,
             contacts_cuda, chol_solve_cuda, sweep_floor_cuda)
     t0 = time.perf_counter()
-    ready = _build.build_libraries([m.LIBRARY for m in mods])
+    alternates = alternate_libraries()
+    ready = _build.build_libraries([m.LIBRARY for m in mods] + alternates)
     for m in mods:
         m._library()
-    log("build", f"{len(mods)} libraries built in parallel and loaded in "
-                 f"{time.perf_counter() - t0:.2f} s "
+    log("build", f"{len(mods)} libraries and {len(alternates)} alternate team widths of K1 "
+                 f"and K2 built in parallel and loaded in {time.perf_counter() - t0:.2f} s "
                  f"({', '.join(f'{k} {v[0]:.2f} s' for k, v in ready.items())})")
-    for m in mods:  # ptxas's registers, stack and spills of every kernel
-        for line in ready[m.LIBRARY[0]][1].splitlines():
-            if "entry function" in line or "stack frame" in line or "Used" in line:
-                log("build", line.strip())
+    # ptxas's registers, stack and spills of every kernel, the alternates'
+    # too (their solo-width kernels: nq = 10, "ILi10")
+    for name, (_, log_) in ready.items():
+        alternate = name.rsplit("_", 1)[-1].startswith("alt")
+        lines = log_.splitlines()
+        for i, line in enumerate(lines):
+            if "entry function" in line and (not alternate or "ILi10" in line):
+                log("build", f"{name}: {line.strip()}")
+                for more in lines[i + 1:i + 4]:
+                    if "stack frame" in more or "Used" in more:
+                        log("build", f"{name}: {more.strip()}")
 
     def no_staged_launch(phase):
         if any(staged_counts().values()):
@@ -1052,6 +1182,7 @@ def main():
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_ilqr["max_abs_err"])
     k1["ilqr"] = dict(k1_ilqr, bound_ms=k1_ilqr["bound"][0], bound_by=k1_ilqr["bound"][1])
     del k1["ilqr"]["bound"]
+    phase_device_times(model, k1, k2, fused_rates)
     phase_ilqr_torso()
     no_staged_launch("the iLQR phases")
     staged = phase_staged_kernels(model, pick_cost(model))
@@ -1088,7 +1219,8 @@ def main():
     # under a key of its own, as does the device time per launch that the
     # profiler read on the staged route and in the iLQR solve (profiled_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("ilqr", "torso", "n20", "variants", "k4_ms", "profiled_ms")
+    extra = ("ilqr", "torso", "n20", "variants", "k4_ms", "profiled_ms", "profiled_ms_k1500",
+             "teams")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

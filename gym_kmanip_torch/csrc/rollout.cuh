@@ -1,13 +1,15 @@
-// Device functions of the whole-horizon pick-cost rollout kernel (K2), one
-// rollout per thread, built on substep_core (substep.cuh):
-// rollout_pick_thread runs the (H-step) rollout and the cube-pick cost
+// Device functions of the whole-horizon pick-cost rollout kernel (K2):
+// H control steps of n_substeps substeps and the cube-pick cost
 // (pallas_substep.py::_rollout_pick_kernel with _pick_cost_row and
-// _table_touch_row). Kept in a header behind __device__ only, so the host
-// test harness compiles it as C++ and holds it to its plain PyTorch
-// version.
+// _table_touch_row). rollout_pick_team is the kernel's body, one team of
+// lanes per candidate sequence on the team substep (substep_team.cuh);
+// rollout_pick_thread, one rollout on one thread over substep_core, is its
+// serial reference, which the host build holds it to bit for bit and no
+// kernel launches. Kept in a header behind __device__ only, so the host test
+// harness compiles it as C++.
 #pragma once
 
-#include "substep.cuh"
+#include "substep_team.cuh"
 
 namespace kmanip {
 
@@ -40,32 +42,31 @@ inline PickSpec make_pick_spec(const float* spec_f, const int* spec_i) {
   return spec;
 }
 
-// contacts.cube_table's `touching`: any cube corner below the table top
-// while over the table.
+// Corner c of the cube below the table top while over the table
+// (contacts.cube_table's `touching` is any corner's).
+__device__ __forceinline__ bool corner_on_table(const M3& R, const Cube& cube, int c) {
+  V3 arm, vc;
+  float pen;
+  bool over;
+  corner_state(R, cube, c, arm, pen, vc, over);
+  return pen > 0.f && over;
+}
+
 __device__ __forceinline__ bool cube_on_table(const Cube& cube) {
   const M3 R = quat_to_mat(cube.quat);
-  const float h = (float)CUBE_HALF;
   bool touching = false;
-  for (int c = 0; c < 8; ++c) {
-    float sx = (c & 4) ? 1.f : -1.f, sy = (c & 2) ? 1.f : -1.f, sz = (c & 1) ? 1.f : -1.f;
-    V3 cw = cube.pos + rmul(R, V3{sx * h, sy * h, sz * h});
-    bool over = fabsf(cw.x - (float)TABLE_X) < (float)TABLE_HALF_X &&
-                fabsf(cw.y - (float)TABLE_Y) < (float)TABLE_HALF_Y;
-    float pen = (over ? (float)TABLE_TOP_Z : 0.f) - cw.z;
-    touching = touching || (pen > 0.f && over);
-  }
+  for (int c = 0; c < 8; ++c) touching = touching || corner_on_table(R, cube, c);
   return touching;
 }
 
 // mpc/cost.cube_pick_cost for one rollout at one control step, with
 // mpc_step's time alignment: post-step q, v and cube; the PRE-step frames
 // (x, qq) of the last substep for the sites; that substep's touch flags;
-// the table touch of the post-step cube.
+// `table`, the table touch of the post-step cube.
 template <int NQ, int T>
-__device__ float pick_cost_step(const ModelView<NQ, T>& m, const PickSpec& s, bool contact,
-                                const float* q, const float* v, const Cube& cube,
-                                const float* u, const bool* touch, const V3* x,
-                                const Q4* qq) {
+__device__ float pick_cost_step(const ModelView<NQ, T>& m, const PickSpec& s, const float* q,
+                                const float* v, const Cube& cube, const float* u,
+                                const bool* touch, const V3* x, const Q4* qq, bool table) {
   float sq = 0.f;
   for (int i = 0; i < NQ; ++i) sq = sq + v[i] * v[i];
   sq = sq + dot(cube.lv, cube.lv);
@@ -79,7 +80,6 @@ __device__ float pick_cost_step(const ModelView<NQ, T>& m, const PickSpec& s, bo
   }
   bool touched = false;
   for (int t = 0; t < T; ++t) touched = touched || touch[t];
-  bool table = contact && cube_on_table(cube);
   c = c - (touched ? s.w_touch : 0.f);
   c = c - ((touched && !table) ? s.w_lift : 0.f);
   const int nu = m.nu();
@@ -93,7 +93,7 @@ __device__ float pick_cost_step(const ModelView<NQ, T>& m, const PickSpec& s, bo
 
 // Rollout k: H control steps of n_substeps substeps from the shared
 // state0 = [qpos (NQ), qvel (NQ), cube13], controls ctrl_seqs[k] (H, nu);
-// returns the summed pick cost.
+// returns the summed pick cost. The team kernel's serial reference.
 template <int NQ, int T>
 __device__ float rollout_pick_thread(int k, const ModelView<NQ, T>& m, const StepConsts& c,
                                      bool contact, bool implicit, int n_substeps, int H,
@@ -106,9 +106,7 @@ __device__ float rollout_pick_thread(int k, const ModelView<NQ, T>& m, const Ste
     v[i] = state0[NQ + i];
     u[i] = 0.f;
   }
-  const float* cb = state0 + 2 * NQ;
-  Cube cube{{cb[0], cb[1], cb[2]}, {cb[3], cb[4], cb[5], cb[6]}, {cb[7], cb[8], cb[9]},
-            {cb[10], cb[11], cb[12]}};
+  Cube cube = cube_from(state0 + 2 * NQ);
   bool touch[T];
   V3 x[NQ];
   Q4 qq[NQ];
@@ -118,8 +116,89 @@ __device__ float rollout_pick_thread(int k, const ModelView<NQ, T>& m, const Ste
     for (int i = 0; i < nu; ++i) u[i] = uk[i];
     for (int s = 0; s < n_substeps; ++s)
       substep_core<NQ, T>(m, c, contact, implicit, q, v, u, cube, touch, x, qq);
-    total = total + pick_cost_step<NQ, T>(m, spec, contact, q, v, cube, u, touch, x, qq);
+    total = total + pick_cost_step<NQ, T>(m, spec, q, v, cube, u, touch, x, qq,
+                                          contact && cube_on_table(cube));
   }
+  return total;
+}
+
+// Copies step h's nu controls of the team's sequence into `stage` without
+// waiting.
+template <class Team>
+__device__ __forceinline__ void stage_controls(const Team& team, int h, int nu, float* stage,
+                                               const float* __restrict__ seq) {
+  for (int i = team.lane; i < nu; i += Team::SIZE) copy_async(stage + i, seq + (long)h * nu + i);
+  copy_commit();
+}
+
+// The kernel's body for the candidate sequence seq = ctrl_seqs[k] (H, nu):
+// rollout_pick_thread on a team, the state in the lanes' registers and in
+// s, each step's controls copied into the double-buffered `stage` (2 NQ
+// floats of shared memory) while the step before runs. The pick cost of
+// each step runs in pick_cost_step's order on lane 0, the table touch one
+// corner per lane and OR-ed across the team. Returns the total on lane 0
+// (0 on the others). M is loaded; every lane of the team calls this.
+template <int NQ, int T, bool CONTACT, bool IMPLICIT, class Team>
+__device__ float rollout_pick_team(const Team& team, const TeamModel<NQ, T>& M,
+                                   TeamWork<NQ, T>& s, float* stage, const StepConsts& c,
+                                   int n_substeps, int H, const PickSpec& spec,
+                                   const float* __restrict__ seq,
+                                   const float* __restrict__ state0) {
+  constexpr int S = Team::SIZE;
+  using LC = LaneConsts<NQ, T, S>;
+  using CN = Corners<S>;
+  const int lane = team.lane;
+  const ModelView<NQ, T> m{M.mf, M.mi};
+  const LC k = lane_consts<NQ, T, S>(M, lane, c);
+  const int nu = k.nu;
+  LaneState<LC::RPL> st;
+#pragma unroll
+  for (int r = 0; r < LC::RPL; ++r) {
+    const int i = lane + r * S < NQ ? lane + r * S : NQ - 1;
+    st.q[r] = state0[i];
+    st.v[r] = state0[NQ + i];
+    st.u[r] = 0.f;
+  }
+  for (int i = lane; i < NQ; i += S) {
+    s.q[i] = state0[i];
+    s.v[i] = state0[NQ + i];
+  }
+  if (lane == 0) s.cube = cube_from(state0 + 2 * NQ);
+  if (H > 0) stage_controls(team, 0, nu, stage, seq);
+  float total = 0.f;
+  KMANIP_PHASE(11);  // the model's load, the lane constants, the start state
+  for (int h = 0; h < H; ++h) {
+    copy_wait_all();
+    team.sync();
+    const float* u = stage + (h & 1) * NQ;
+    if (h + 1 < H) stage_controls(team, h + 1, nu, stage + ((h + 1) & 1) * NQ, seq);
+#pragma unroll
+    for (int r = 0; r < LC::RPL; ++r) {
+      const int i = lane + r * S;
+      if (i < nu) st.u[r] = u[i];
+    }
+    KMANIP_PHASE(0);  // the copies' wait, the step's controls
+    for (int sub = 0; sub < n_substeps; ++sub)
+      substep_team<NQ, T, CONTACT, IMPLICIT, true>(team, m, c, k, st, M, s);
+    team.sync();
+    KMANIP_PHASE(7);  // integration
+    bool table = false;
+    if (CONTACT) {
+      const Cube cube = s.cube;
+      const M3 R = quat_to_mat(cube.quat);
+#pragma unroll
+      for (int r = 0; r < CN::PER_LANE; ++r) {
+        const int cc = CN::of(lane, r);
+        if (cc >= 0) table = table || corner_on_table(R, cube, cc);
+      }
+      table = team.max(table ? 1.f : 0.f) > 0.f;
+    }
+    if (lane == 0)
+      total = total + pick_cost_step<NQ, T>(m, spec, s.q, s.v, s.cube, u, s.touch, s.x, s.qq,
+                                            table);
+    KMANIP_PHASE(10);  // the pick cost
+  }
+  team.sync();  // a team that runs another sequence next waits for lane 0's reads
   return total;
 }
 

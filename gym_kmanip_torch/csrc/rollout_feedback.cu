@@ -1,9 +1,10 @@
 // The iLQR feedback rollout for B step sizes over the whole horizon in one
 // launch: the CUDA replacement of the JAX package's Pallas TPU kernel
 // gym_kmanip_tpu/ops/pallas_substep.py::rollout_feedback (kernel
-// _rollout_feedback_kernel). The arithmetic lives in feedback_warp.cuh
-// (on substep.cuh's device functions); this file holds the kernel and its
-// C entry point.
+// _rollout_feedback_kernel). The arithmetic lives in feedback_warp.cuh, on
+// the team substep of substep_team.cuh (contact-free, implicit, the cube
+// pinned), which K1 and K2 share; this file holds the kernel and its C
+// entry point.
 //
 // Design: one warp per step size alpha (B = 6 for the line search, 1 for
 // the nominal rollout), each in a block of its own, so the B warps run on B

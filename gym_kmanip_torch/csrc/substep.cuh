@@ -1,11 +1,14 @@
 // Device functions of the physics substep: FK + RNEA (rnea_rows), the
-// contact model (contact_rows) and the whole substep (substep_core), one
-// rollout per thread. They follow the JAX package's Pallas row cores op for
-// op: gym_kmanip_tpu/ops/pallas_dynamics.py::_rnea_rows,
+// contact model (contact_rows, on per-tip and per-corner helpers) and the
+// whole substep (substep_core), one rollout per thread. They follow the JAX
+// package's Pallas row cores op for op:
+// gym_kmanip_tpu/ops/pallas_dynamics.py::_rnea_rows,
 // ops/pallas_contacts.py::_contact_rows and
-// ops/pallas_substep.py::_substep_core. Kept in a header so later kernels
-// (the fused rollout + cost, the feedback rollout, standalone FK and
-// contacts) reuse them.
+// ops/pallas_substep.py::_substep_core. The staged kernels K5-K7
+// (staged.cuh) run these per item; the team substep of K1, K2 and K3
+// (substep_team.cuh) splits the same arithmetic over the lanes of a warp,
+// calling the same helpers, and substep_core is its serial reference on the
+// host build.
 //
 // Numerics: float32 throughout, like JAX with x64 off. Constants are
 // written in double and rounded to float at use, which is what JAX does
@@ -267,6 +270,85 @@ __device__ __forceinline__ V3 friction(float fn, V3 vt) {
   return vt * s;
 }
 
+// Fingertip sphere (position p, velocity v, radius r) against the cube box
+// (rotation R): the force on the cube f_on_cube and its moment about the
+// cube's centre arm_x_f, the force on the tip tip_f, and whether the tip
+// touches.
+__device__ __forceinline__ void tip_contact(const M3& R, const Cube& cube, V3 p, V3 v, float r,
+                                            V3& f_on_cube, V3& arm_x_f, V3& tip_f,
+                                            bool& touch) {
+  const float h = (float)CUBE_HALF;
+  V3 local = rtmul(R, p - cube.pos);
+  V3 delta = local - V3{clampf(local.x, -h, h), clampf(local.y, -h, h), clampf(local.z, -h, h)};
+  float sq = dot(delta, delta);
+  bool outside = sq > 1e-18f;
+  float dist = sqrtf(outside ? sq : 1.f);
+  V3 n_out = delta * (1.f / dist);
+  float pen_out = r - dist;
+  // inside: exit through the nearest face (first one on a tie)
+  V3 fd{h - fabsf(local.x), h - fabsf(local.y), h - fabsf(local.z)};
+  bool m01 = fd.x <= fd.y;
+  float fd01 = m01 ? fd.x : fd.y;
+  bool ax0 = m01 && (fd.x <= fd.z);
+  bool ax1 = (!m01) && (fd.y <= fd.z);
+  bool ax2 = !(ax0 || ax1);
+  V3 n_in{ax0 ? signf(local.x + 1e-12f) : 0.f, ax1 ? signf(local.y + 1e-12f) : 0.f,
+          ax2 ? signf(local.z + 1e-12f) : 0.f};
+  float pen_in = r + (fd01 <= fd.z ? fd01 : fd.z);
+  float pen = outside ? pen_out : pen_in;
+  V3 n = rmul(R, outside ? n_out : n_in);
+  V3 cpoint = p - n * (r - fmaxf(pen, 0.f) * 0.5f);
+  V3 arm = cpoint - cube.pos;
+  V3 v_rel = v - (cube.lv + cross(cube.av, arm));
+  float vn = dot(v_rel, n);
+  float a0 = -(0.f * n.x + 0.f * n.y + (float)GRAV_Z * n.z);
+  float fn = normal_force(pen, vn, a0, (float)CUBE_MASS);
+  V3 fr = friction(fn, v_rel - n * vn);
+  f_on_cube = (n * fn) * -1.f - fr;
+  arm_x_f = cross(arm, f_on_cube);
+  tip_f = n * fn + fr;
+  touch = pen > 0.f;
+}
+
+// Cube corner c (bit 2: +x, bit 1: +y, bit 0: +z) against the table plane,
+// or the floor off the table: its arm from the centre, penetration,
+// velocity, and whether it is over the table.
+__device__ __forceinline__ void corner_state(const M3& R, const Cube& cube, int c, V3& arm,
+                                             float& pen, V3& vc, bool& over) {
+  const float h = (float)CUBE_HALF;
+  float sx = (c & 4) ? 1.f : -1.f, sy = (c & 2) ? 1.f : -1.f, sz = (c & 1) ? 1.f : -1.f;
+  arm = rmul(R, V3{sx * h, sy * h, sz * h});
+  V3 cw = cube.pos + arm;
+  over = fabsf(cw.x - (float)TABLE_X) < (float)TABLE_HALF_X &&
+         fabsf(cw.y - (float)TABLE_Y) < (float)TABLE_HALF_Y;
+  pen = (over ? (float)TABLE_TOP_Z : 0.f) - cw.z;
+  vc = cube.lv + cross(cube.av, arm);
+}
+
+// The cube's accelerations under the fingertips' force and torque alone
+// (the one Gauss-Seidel pass: they feed the corners' a0).
+__device__ __forceinline__ void cube_acc(V3 force, V3 torque, V3& acc_com, V3& alpha) {
+  acc_com = V3{force.x + (float)(CUBE_MASS * 0.0), force.y + (float)(CUBE_MASS * 0.0),
+               force.z + (float)(CUBE_MASS * GRAV_Z)} *
+            (float)(1.0 / CUBE_MASS);
+  alpha = torque * (float)(1.0 / CUBE_INERTIA);
+}
+
+// Corner's normal acceleration before its own contact force.
+__device__ __forceinline__ float corner_a0(V3 acc_com, V3 alpha, V3 av, V3 arm) {
+  V3 a_corner = acc_com + (cross(alpha, arm) + cross(av, cross(av, arm)));
+  return a_corner.z;
+}
+
+// The corner's contact force f on the cube and its moment arm_x_f.
+__device__ __forceinline__ void corner_force(float pen, V3 vc, float a0, float m_eff, V3 arm,
+                                             V3& f, V3& arm_x_f) {
+  float fn = normal_force(pen, vc.z, a0, m_eff);
+  V3 ft = friction(fn, V3{vc.x, vc.y, 0.f});
+  f = V3{ft.x, ft.y, ft.z + fn};
+  arm_x_f = cross(arm, f);
+}
+
 // Fingertip spheres vs the cube box FIRST (their force on the cube feeds
 // the table contact's a0: one Gauss-Seidel pass), then the 8 cube corners
 // vs the table plane (or the floor off the table).
@@ -275,76 +357,79 @@ __device__ void contact_rows(const float* tip_radius, const V3* tip_p, const V3*
                              const Cube& cube, V3& force, V3& torque, V3* tip_f, bool* touch,
                              bool& touching) {
   const M3 R = quat_to_mat(cube.quat);
-  const float h = (float)CUBE_HALF;
   force = V3{0.f, 0.f, 0.f};
   torque = V3{0.f, 0.f, 0.f};
   for (int t = 0; t < T; ++t) {
-    V3 p = tip_p[t], v = tip_v[t];
-    float r = tip_radius[t];
-    V3 local = rtmul(R, p - cube.pos);
-    V3 delta = local - V3{clampf(local.x, -h, h), clampf(local.y, -h, h), clampf(local.z, -h, h)};
-    float sq = dot(delta, delta);
-    bool outside = sq > 1e-18f;
-    float dist = sqrtf(outside ? sq : 1.f);
-    V3 n_out = delta * (1.f / dist);
-    float pen_out = r - dist;
-    // inside: exit through the nearest face (first one on a tie)
-    V3 fd{h - fabsf(local.x), h - fabsf(local.y), h - fabsf(local.z)};
-    bool m01 = fd.x <= fd.y;
-    float fd01 = m01 ? fd.x : fd.y;
-    bool ax0 = m01 && (fd.x <= fd.z);
-    bool ax1 = (!m01) && (fd.y <= fd.z);
-    bool ax2 = !(ax0 || ax1);
-    V3 n_in{ax0 ? signf(local.x + 1e-12f) : 0.f, ax1 ? signf(local.y + 1e-12f) : 0.f,
-            ax2 ? signf(local.z + 1e-12f) : 0.f};
-    float pen_in = r + (fd01 <= fd.z ? fd01 : fd.z);
-    float pen = outside ? pen_out : pen_in;
-    V3 n = rmul(R, outside ? n_out : n_in);
-    V3 cpoint = p - n * (r - fmaxf(pen, 0.f) * 0.5f);
-    V3 arm = cpoint - cube.pos;
-    V3 v_rel = v - (cube.lv + cross(cube.av, arm));
-    float vn = dot(v_rel, n);
-    float a0 = -(0.f * n.x + 0.f * n.y + (float)GRAV_Z * n.z);
-    float fn = normal_force(pen, vn, a0, (float)CUBE_MASS);
-    V3 fr = friction(fn, v_rel - n * vn);
-    V3 f_on_cube = (n * fn) * -1.f - fr;
+    V3 f_on_cube, arm_x_f;
+    tip_contact(R, cube, tip_p[t], tip_v[t], tip_radius[t], f_on_cube, arm_x_f, tip_f[t],
+                touch[t]);
     force = force + f_on_cube;
-    torque = torque + cross(arm, f_on_cube);
-    tip_f[t] = n * fn + fr;
-    touch[t] = pen > 0.f;
+    torque = torque + arm_x_f;
   }
 
-  V3 acc_com = V3{force.x + (float)(CUBE_MASS * 0.0), force.y + (float)(CUBE_MASS * 0.0),
-                  force.z + (float)(CUBE_MASS * GRAV_Z)} *
-               (float)(1.0 / CUBE_MASS);
-  V3 alpha = torque * (float)(1.0 / CUBE_INERTIA);
+  V3 acc_com, alpha;
+  cube_acc(force, torque, acc_com, alpha);
   touching = false;
   float n_act = 0.f;
   float pens[8], a0s[8];
   V3 vcs[8], arms[8];
   for (int c = 0; c < 8; ++c) {
-    float sx = (c & 4) ? 1.f : -1.f, sy = (c & 2) ? 1.f : -1.f, sz = (c & 1) ? 1.f : -1.f;
-    V3 arm = rmul(R, V3{sx * h, sy * h, sz * h});
-    V3 cw = cube.pos + arm;
-    bool over = fabsf(cw.x - (float)TABLE_X) < (float)TABLE_HALF_X &&
-                fabsf(cw.y - (float)TABLE_Y) < (float)TABLE_HALF_Y;
-    float pen = (over ? (float)TABLE_TOP_Z : 0.f) - cw.z;
-    V3 a_corner = acc_com + (cross(alpha, arm) + cross(cube.av, cross(cube.av, arm)));
-    pens[c] = pen;
-    vcs[c] = cube.lv + cross(cube.av, arm);
-    arms[c] = arm;
-    a0s[c] = a_corner.z;
-    n_act += pen > 0.f ? 1.f : 0.f;
-    touching = touching || (pen > 0.f && over);
+    bool over;
+    corner_state(R, cube, c, arms[c], pens[c], vcs[c], over);
+    a0s[c] = corner_a0(acc_com, alpha, cube.av, arms[c]);
+    n_act += pens[c] > 0.f ? 1.f : 0.f;
+    touching = touching || (pens[c] > 0.f && over);
   }
   float m_eff = (float)CUBE_MASS / fmaxf(n_act, 1.f);
   for (int c = 0; c < 8; ++c) {
-    float fn = normal_force(pens[c], vcs[c].z, a0s[c], m_eff);
-    V3 ft = friction(fn, V3{vcs[c].x, vcs[c].y, 0.f});
-    V3 f{ft.x, ft.y, ft.z + fn};
+    V3 f, arm_x_f;
+    corner_force(pens[c], vcs[c], a0s[c], m_eff, arms[c], f, arm_x_f);
     force = force + f;
-    torque = torque + cross(arms[c], f);
+    torque = torque + arm_x_f;
   }
+}
+
+// The cube's free body over one substep: contact force + gravity, dry
+// frictionloss, the energy cap, then the safe quaternion integration.
+__device__ __forceinline__ void integrate_cube(const StepConsts& c, V3 force_c, V3 torque_c,
+                                               Cube& cube) {
+  V3 lv = cube.lv + force_c * c.lv_scale;
+  lv.z = lv.z + c.lv_grav;
+  V3 av = cube.av + torque_c * c.av_scale;
+  lv = V3{lv.x + clampf(-lv.x, -c.cap_l, c.cap_l), lv.y + clampf(-lv.y, -c.cap_l, c.cap_l),
+          lv.z + clampf(-lv.z, -c.cap_l, c.cap_l)};
+  av = V3{av.x + clampf(-av.x, -c.cap_a, c.cap_a), av.y + clampf(-av.y, -c.cap_a, c.cap_a),
+          av.z + clampf(-av.z, -c.cap_a, c.cap_a)};
+  const float ml = (float)CUBE_MAX_LINVEL, ma = (float)CUBE_MAX_ANGVEL;
+  lv = V3{clampf(lv.x, -ml, ml), clampf(lv.y, -ml, ml), clampf(lv.z, -ml, ml)};
+  av = V3{clampf(av.x, -ma, ma), clampf(av.y, -ma, ma), clampf(av.z, -ma, ma)};
+  cube.pos = cube.pos + lv * c.dt_f;
+  // safe quaternion integrate (small-angle Taylor branch)
+  V3 rv = av * c.dt_f;
+  float sq = dot(rv, rv);
+  bool small = sq < 1e-14f;
+  float angle = sqrtf(small ? 1.f : sq);
+  float half = 0.5f * angle;
+  float scale = small ? 0.5f - sq / 48.f : sinf(half) / angle;
+  float ws = small ? 1.f - sq / 8.f : cosf(half);
+  Q4 quat = qmul(Q4{ws, scale * rv.x, scale * rv.y, scale * rv.z}, cube.quat);
+  float qn = sqrtf(fmaxf(quat.w * quat.w + quat.x * quat.x + quat.y * quat.y + quat.z * quat.z,
+                         1e-12f));
+  cube.quat = Q4{quat.w / qn, quat.x / qn, quat.y / qn, quat.z / qn};
+  cube.lv = lv;
+  cube.av = av;
+}
+
+// The cube's 13 floats: pos, quat (w, x, y, z), linvel, angvel.
+__device__ __forceinline__ Cube cube_from(const float* cb) {
+  return Cube{{cb[0], cb[1], cb[2]}, {cb[3], cb[4], cb[5], cb[6]}, {cb[7], cb[8], cb[9]},
+              {cb[10], cb[11], cb[12]}};
+}
+__device__ __forceinline__ void cube_to(const Cube& cube, float* co) {
+  const float vals[13] = {cube.pos.x,  cube.pos.y,  cube.pos.z, cube.quat.w, cube.quat.x,
+                          cube.quat.y, cube.quat.z, cube.lv.x,  cube.lv.y,   cube.lv.z,
+                          cube.av.x,   cube.av.y,   cube.av.z};
+  for (int j = 0; j < 13; ++j) co[j] = vals[j];
 }
 
 // ---- dense Cholesky on a packed lower triangle (row i starts at i(i+1)/2) ----
@@ -517,35 +602,13 @@ __device__ void substep_core(const ModelView<NQ, T>& m, const StepConsts& c, boo
   }
 
   // cube free body: contact force + gravity, dry frictionloss, energy cap
-  V3 lv = cube.lv + force_c * c.lv_scale;
-  lv.z = lv.z + c.lv_grav;
-  V3 av = cube.av + torque_c * c.av_scale;
-  lv = V3{lv.x + clampf(-lv.x, -c.cap_l, c.cap_l), lv.y + clampf(-lv.y, -c.cap_l, c.cap_l),
-          lv.z + clampf(-lv.z, -c.cap_l, c.cap_l)};
-  av = V3{av.x + clampf(-av.x, -c.cap_a, c.cap_a), av.y + clampf(-av.y, -c.cap_a, c.cap_a),
-          av.z + clampf(-av.z, -c.cap_a, c.cap_a)};
-  const float ml = (float)CUBE_MAX_LINVEL, ma = (float)CUBE_MAX_ANGVEL;
-  lv = V3{clampf(lv.x, -ml, ml), clampf(lv.y, -ml, ml), clampf(lv.z, -ml, ml)};
-  av = V3{clampf(av.x, -ma, ma), clampf(av.y, -ma, ma), clampf(av.z, -ma, ma)};
-  cube.pos = cube.pos + lv * c.dt_f;
-  // safe quaternion integrate (small-angle Taylor branch)
-  V3 rv = av * c.dt_f;
-  float sq = dot(rv, rv);
-  bool small = sq < 1e-14f;
-  float angle = sqrtf(small ? 1.f : sq);
-  float half = 0.5f * angle;
-  float scale = small ? 0.5f - sq / 48.f : sinf(half) / angle;
-  float ws = small ? 1.f - sq / 8.f : cosf(half);
-  Q4 quat = qmul(Q4{ws, scale * rv.x, scale * rv.y, scale * rv.z}, cube.quat);
-  float qn = sqrtf(fmaxf(quat.w * quat.w + quat.x * quat.x + quat.y * quat.y + quat.z * quat.z,
-                         1e-12f));
-  cube.quat = Q4{quat.w / qn, quat.x / qn, quat.y / qn, quat.z / qn};
-  cube.lv = lv;
-  cube.av = av;
+  integrate_cube(c, force_c, torque_c, cube);
 }
 
 // Rollout k of a batch: read its rows of the (K, n) inputs, run one
-// substep, write its rows of the outputs.
+// substep, write its rows of the outputs. The serial reference of the team
+// kernel K1 (substep_team.cuh): the host build holds the team substep to it
+// bit for bit; no kernel launches it.
 template <int NQ, int T>
 __device__ void substep_rollout(int k, const ModelView<NQ, T>& m, const StepConsts& c,
                                 bool contact, bool implicit, const float* __restrict__ qpos,
@@ -561,9 +624,7 @@ __device__ void substep_rollout(int k, const ModelView<NQ, T>& m, const StepCons
     v[i] = qvel[k * NQ + i];
     u[i] = i < nu ? ctrl[k * nu + i] : 0.f;
   }
-  const float* cb = cube13 + k * 13;
-  Cube cube{{cb[0], cb[1], cb[2]}, {cb[3], cb[4], cb[5], cb[6]}, {cb[7], cb[8], cb[9]},
-            {cb[10], cb[11], cb[12]}};
+  Cube cube = cube_from(cube13 + k * 13);
 
   bool touch[T];
   V3 x[NQ];
@@ -583,11 +644,7 @@ __device__ void substep_rollout(int k, const ModelView<NQ, T>& m, const StepCons
     xq[2] = qq[i].y;
     xq[3] = qq[i].z;
   }
-  float* co = cube_out + k * 13;
-  const float vals[13] = {cube.pos.x,  cube.pos.y,  cube.pos.z, cube.quat.w, cube.quat.x,
-                          cube.quat.y, cube.quat.z, cube.lv.x,  cube.lv.y,   cube.lv.z,
-                          cube.av.x,   cube.av.y,   cube.av.z};
-  for (int j = 0; j < 13; ++j) co[j] = vals[j];
+  cube_to(cube, cube_out + k * 13);
   for (int t = 0; t < T; ++t) touch_out[k * T + t] = touch[t];
 }
 

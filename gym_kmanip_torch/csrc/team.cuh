@@ -1,6 +1,7 @@
-// What the cooperative kernels (the feedback rollout K3, the Riccati sweep
-// K4 and its floor experiment K8) are written against: a block barrier, a
-// team of lanes that can sync, broadcast and reduce (one warp on the card),
+// What the cooperative kernels (the substep K1, the pick-cost rollout K2,
+// the feedback rollout K3, the Riccati sweep K4 and its floor experiment K8)
+// are written against: a block barrier, a team of lanes that can sync,
+// broadcast and reduce (one warp or one half-warp on the card),
 // and an asynchronous global-to-shared copy. On the card these are
 // __syncthreads, __syncwarp, __shfl_sync and cp.async. Compiled as host C++
 // (the test harness), the copy is a plain load and store, and the harness
@@ -51,6 +52,35 @@ struct WarpTeam {
     for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
   }
+};
+
+// 16 lanes of one warp: lanes 0-15 are one team, lanes 16-31 another, and
+// the shuffles stay inside each half. Both halves of the warp run the same
+// code (their branches depend on the lane index and the model only), so
+// they meet at every sync, broadcast and max together.
+struct HalfWarpTeam {
+  static constexpr int SIZE = 16;
+  int lane;  // 0-15, within the half
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  __device__ __forceinline__ float bcast(float v, int src) const {
+    return __shfl_sync(0xffffffffu, v, src, 16);
+  }
+  __device__ __forceinline__ float max(float v) const {
+    for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o, 16));
+    return v;
+  }
+};
+
+// The team of S lanes: a warp (32) or a half-warp (16).
+template <int S>
+struct TeamOf;
+template <>
+struct TeamOf<32> {
+  using type = WarpTeam;
+};
+template <>
+struct TeamOf<16> {
+  using type = HalfWarpTeam;
 };
 
 // *dst = *src, 4 bytes, without waiting: cp.async into shared memory.

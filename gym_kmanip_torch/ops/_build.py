@@ -94,15 +94,15 @@ def load_library(name: str, sources, headers) -> ctypes.CDLL:
 
 
 def build_libraries(libraries) -> dict:
-    """Build every (name, sources, headers) library not built yet, one nvcc
-    each, all started together; returns {name: (seconds until it was
-    ready, nvcc's stderr with ptxas's report)}. Raises the first build's
-    error."""
+    """Build every (name, sources, headers[, flags]) library not built yet,
+    one nvcc each, all started together; `flags` are extra nvcc flags.
+    Returns {name: (seconds until it was ready, nvcc's stderr with ptxas's
+    report)}. Raises the first build's error."""
     t0 = time.perf_counter()
 
     def one(lib):
-        name, sources, headers = lib
-        _, log = _build(name, list(sources), list(headers))
+        name, sources, headers, *flags = lib
+        _, log = _build(name, list(sources), list(headers), tuple(flags[0]) if flags else ())
         return name, (time.perf_counter() - t0, log)
 
     with ThreadPoolExecutor(max_workers=max(len(libraries), 1)) as pool:

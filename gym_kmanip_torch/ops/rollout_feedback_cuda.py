@@ -32,7 +32,7 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import SUPPORTED, _check, _model_buffers
 
 SOURCES = ("rollout_feedback.cu",)
-HEADERS = ("feedback_warp.cuh", "substep.cuh", "team.cuh")
+HEADERS = ("feedback_warp.cuh", "substep.cuh", "substep_team.cuh", "team.cuh")
 LIBRARY = ("rollout_feedback", SOURCES, HEADERS)
 
 _P = ctypes.c_void_p

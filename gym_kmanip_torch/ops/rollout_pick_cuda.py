@@ -32,7 +32,7 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import SUPPORTED, _check, _model_buffers
 
 SOURCES = ("rollout_pick.cu",)
-HEADERS = ("rollout.cuh", "substep.cuh")
+HEADERS = ("rollout.cuh", "substep.cuh", "substep_team.cuh", "team.cuh")
 LIBRARY = ("rollout_pick", SOURCES, HEADERS)
 
 _P = ctypes.c_void_p
@@ -53,7 +53,11 @@ class PickCostSpec(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library(*LIBRARY)
+    return _bind(_build.load_library(*LIBRARY))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point's argument types on a loaded library."""
     lib.kmanip_rollout_pick.argtypes = [
         ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_double,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -23,7 +23,7 @@ from gym_kmanip_torch.models.spec import RobotModel
 from gym_kmanip_torch.ops import _build
 
 SOURCES = ("substep.cu",)
-HEADERS = ("substep.cuh",)
+HEADERS = ("substep.cuh", "substep_team.cuh", "team.cuh")
 LIBRARY = ("substep", SOURCES, HEADERS)
 # (nq, fingertips) the kernel is instantiated for: solo arm; dual arm and torso
 SUPPORTED = ((10, 2), (20, 4))
@@ -33,7 +33,11 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library(*LIBRARY)
+    return _bind(_build.load_library(*LIBRARY))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry points' argument types on a loaded library."""
     lib.kmanip_substep.argtypes = [
         ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_double,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,

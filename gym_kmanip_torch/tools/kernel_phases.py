@@ -1,17 +1,22 @@
-"""Cycles per step, phase by phase, of the feedback rollout (K3) and the
-Riccati sweep (K4) on the card.
+"""Cycles per step, phase by phase, of the substep (K1), the pick-cost
+rollout (K2), the feedback rollout (K3) and the Riccati sweep (K4) on the
+card.
 
     python -m gym_kmanip_torch.tools.kernel_phases
 
-Builds the two kernels again with a prelude that turns their phase marks
-(KMANIP_PHASE in csrc/feedback_warp.cuh and csrc/riccati.cuh; no-ops in the
-normal build) into clock64 counters kept by thread 0 of block 0: each mark
-adds the cycles since the mark before to its phase. It runs them through
-their wrappers at the main path's shapes (K3: the solo arm, B=6 step sizes,
-H=50, seeded nominal and gains; K4: the seeded problems at (50, 20, 10) and
-(100, 40, 20)) and prints each phase's mean cycles per step. A mark costs a
-few shared-memory operations on thread 0; the kernels' times are
-chip_smoke.py's. Needs nvcc and a CUDA device; exits non-zero without one.
+Builds the kernels again with a prelude that turns their phase marks
+(KMANIP_PHASE in csrc/substep_team.cuh, csrc/rollout.cuh,
+csrc/feedback_warp.cuh, csrc/riccati.cuh and the K1 and K2 kernels; no-ops
+in the normal build) into clock64 counters kept by thread 0 of block 0:
+each mark adds the cycles since the mark before to its phase. It runs them
+through their wrappers at the main path's shapes (K1: seeded solo states at
+K=256 with contact and at K=1,500 without, the iLQR FD probes' shape; K2:
+the solo arm, K=256, H=50, seeded controls; K3: the solo arm, B=6 step
+sizes, H=50, seeded nominal and gains; K4: the seeded problems at (50, 20,
+10) and (100, 40, 20)) and prints each phase's mean cycles per step (per
+launch for K1). A mark costs a few shared-memory operations on thread 0;
+the kernels' times are chip_smoke.py's. Needs nvcc and a CUDA device; exits
+non-zero without one.
 """
 
 import ctypes
@@ -25,6 +30,7 @@ import torch
 from gym_kmanip_torch.dynamics.state import init_state
 from gym_kmanip_torch.models import get_model
 from gym_kmanip_torch.ops import _build, riccati_cuda, rollout_feedback_cuda
+from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda
 
 N_PHASES = 16
 PRELUDE = r"""
@@ -43,8 +49,11 @@ extern "C" int kmanip_phase_read(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, kmanip_phase_cycles, sizeof(kmanip_phase_cycles));
 }
 """
-K3_PHASES = ("feedback law", "FK", "loads and Jacobian columns", "mass matrix",
-             "backward pass and torques", "factor", "solves and constraints", "integration")
+# the team substep's marks (csrc/substep_team.cuh) and the rollouts' own
+SUBSTEP_PHASES = {0: "step's inputs", 1: "FK", 2: "loads, tips, corners, Jacobian columns",
+                  8: "corner forces", 3: "mass matrix", 9: "backward pass, cube", 4: "torques",
+                  5: "factor", 6: "solves and constraints", 7: "integration", 10: "pick cost",
+                  11: "setup", 12: "outputs"}
 K4_PHASES = ("wait and barrier", "P1 GW", "P2 Q blocks", "P3 factor", "P4 gains and V",
              "P5 value update")
 
@@ -101,7 +110,35 @@ def k3_phases(device, H=50):
     lib = instrumented(rollout_feedback_cuda, "rollout_feedback")
     c = cycles(rollout_feedback_cuda, lib,
                lambda: rollout_feedback_cuda.rollout_feedback(m, *args), H)
-    return dict(zip(K3_PHASES, c))
+    return named(c)
+
+
+def named(c):
+    return {name: c[i] for i, name in SUBSTEP_PHASES.items() if c[i] > 0}
+
+
+def k1_phases(device):
+    m = get_model("solo_arm")
+    lib = instrumented(substep_cuda, "substep")
+    out = {}
+    for K, contact in ((256, True), (1500, False)):
+        inputs = [torch.as_tensor(a, device=device)
+                  for a in substep_cuda.random_inputs(m, K, seed=0)]
+        c = cycles(substep_cuda, lib,
+                   lambda: substep_cuda.substep_batched(m, 0.02, contact, True, *inputs), 1)
+        out[(K, contact)] = named(c)
+    return out
+
+
+def k2_phases(device, K=256, H=50):
+    m = get_model("solo_arm")
+    s0 = init_state(m, device=device)
+    rng = np.random.RandomState(0)
+    U = torch.as_tensor((m.home_qpos[: m.nu] + 0.1 * rng.randn(K, H, m.nu)).astype(np.float32),
+                        device=device)
+    lib = instrumented(rollout_pick_cuda, "rollout_pick")
+    return named(cycles(rollout_pick_cuda, lib,
+                        lambda: rollout_pick_cuda.rollout_pick_costs(m, U, s0), H))
 
 
 def k4_phases(device, widths=((50, 20, 10), (100, 40, 20))):
@@ -126,6 +163,9 @@ def main():
         sys.exit("kernel_phases: no CUDA device")
     device = torch.device("cuda", 0)
     print(f"{torch.cuda.get_device_name(0)}; clock64 cycles per step, thread 0 of block 0")
+    for (K, contact), phases in k1_phases(device).items():
+        print(f"K1 solo K={K} contact={contact} (per launch): {line(phases)}")
+    print(f"K2 solo K=256 H=50: {line(k2_phases(device))}")
     print(f"K3 solo B=6 H=50: {line(k3_phases(device))}")
     for widths, phases in k4_phases(device).items():
         print(f"K4 {widths}: {line(phases)}")

@@ -53,6 +53,29 @@ def test_kernel_matches_plain_on_cuda(cuda, name, dt, implicit):
             np.testing.assert_allclose(g, w, atol=tol, rtol=0, err_msg=name_)
 
 
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+def test_kernel_matches_plain_at_fd_probe_shape_on_cuda(cuda, name):
+    """K1 at the iLQR FD probes' launch shape, K=1500 without contact (1,500
+    teams of lanes), against its plain version at the substep tolerances;
+    no touch flag is set."""
+    m = get_model(name)
+    inputs = [torch.as_tensor(a, device=cuda)
+              for a in substep_cuda.random_inputs(m, 1500, seed=12)]
+    before = substep_cuda.substep_batched.launches
+    got = substep_cuda.substep_batched(m, 0.02, False, True, *inputs)
+    want = substep_cuda.substep_batched_reference(m, 0.02, False, True, *inputs)
+    torch.cuda.synchronize()
+    assert substep_cuda.substep_batched.launches == before + 1
+    assert not bool(got[3].any())
+    for name_, g, w, tol in zip(("qpos", "qvel", "cube13", "touch", "xpos", "xquat"),
+                                got, want, (1e-5, 1e-4, 1e-4, None, 1e-5, 1e-5)):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if tol is None:
+            np.testing.assert_array_equal(g, w, err_msg=name_)
+        else:
+            np.testing.assert_allclose(g, w, atol=tol, rtol=0, err_msg=name_)
+
+
 def test_wrapper_refuses_bad_inputs(cuda):
     m = get_model("solo_arm")
     q, v, c, cube = (torch.as_tensor(a, device=cuda)
@@ -101,6 +124,27 @@ def test_rollout_pick_kernel_matches_plain_on_cuda(cuda, name):
         rp.rollout_pick_costs(m, U.transpose(0, 1), s0, spec)
     with pytest.raises(ValueError):
         rp.rollout_pick_costs(m, U, s0._replace(qpos=s0.qpos.cpu()), spec)
+
+
+def test_rollout_pick_kernel_matches_plain_at_main_path_shape_on_cuda(cuda):
+    """K2 at the fused MPPI solve's shape, K=256 and H=50 on the solo arm,
+    against `rollout_pick_costs_reference` at 1e-4 of the largest total
+    (chip_smoke.py's band: 50 steps with contact grow the float32 rounding
+    of the two versions apart)."""
+    from gym_kmanip_torch.ops import rollout_pick_cuda as rp
+
+    m = get_model("solo_arm")
+    s0 = _state(m, cuda)
+    rng = np.random.RandomState(4)
+    U = torch.as_tensor((m.home_qpos[: m.nu] + 0.1 * rng.randn(256, 50, m.nu)).astype(
+        np.float32), device=cuda)
+    before = rp.rollout_pick_costs.launches
+    got = rp.rollout_pick_costs(m, U, s0)
+    want = rp.rollout_pick_costs_reference(m, U, s0)
+    torch.cuda.synchronize()
+    assert rp.rollout_pick_costs.launches == before + 1
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4 * scale, rtol=0)
 
 
 def float64_twin(m, device, monkeypatch):

@@ -12,6 +12,7 @@ import os
 import re
 import shutil
 import subprocess
+import types
 from functools import partial
 
 import jax
@@ -409,11 +410,12 @@ def test_substep_cuda_imports_without_nvcc(solo):
         substep_cuda.substep_batched(m, 0.02, True, True, *meta)
 
 
-_HOST_HARNESS = r"""
+_HOST_PRELUDE = r"""
 #include <pthread.h>
 
 #include <cmath>
 #include <thread>
+#include <type_traits>
 #include <vector>
 #define __device__
 #define __forceinline__ inline
@@ -423,53 +425,6 @@ _HOST_HARNESS = r"""
 #include "riccati.cuh"
 #include "staged.cuh"
 #include "sweep_floor.cuh"
-extern "C" int host_substep(int nq, int T, const float* mf, const int* mi, double dt,
-    int contact, int implicit, int K, const float* qpos, const float* qvel,
-    const float* ctrl, const float* cube13, float* qo, float* vo, float* co,
-    bool* touch, float* xp, float* xq) {
-  using namespace kmanip;
-  const StepConsts c = make_consts(dt);
-  if (nq == 10 && T == 2) {
-    ModelView<10, 2> m{mf, mi};
-    for (int k = 0; k < K; ++k)
-      substep_rollout<10, 2>(k, m, c, contact, implicit, qpos, qvel, ctrl, cube13,
-                             qo, vo, co, touch, xp, xq);
-    return 0;
-  }
-  if (nq == 20 && T == 4) {
-    ModelView<20, 4> m{mf, mi};
-    for (int k = 0; k < K; ++k)
-      substep_rollout<20, 4>(k, m, c, contact, implicit, qpos, qvel, ctrl, cube13,
-                             qo, vo, co, touch, xp, xq);
-    return 0;
-  }
-  return -1;
-}
-
-// the whole-horizon kernels, thread by thread (csrc/rollout.cuh)
-extern "C" int host_rollout_pick(int nq, int T, const float* mf, const int* mi, double dt,
-    int contact, int implicit, int n_substeps, int K, int H, const float* spec_f,
-    const int* spec_i, const float* ctrl_seqs, const float* state0, float* cost) {
-  using namespace kmanip;
-  const StepConsts c = make_consts(dt);
-  const PickSpec spec = make_pick_spec(spec_f, spec_i);
-  if (nq == 10 && T == 2) {
-    ModelView<10, 2> m{mf, mi};
-    for (int k = 0; k < K; ++k)
-      cost[k] = rollout_pick_thread<10, 2>(k, m, c, contact, implicit, n_substeps, H, spec,
-                                           ctrl_seqs, state0);
-    return 0;
-  }
-  if (nq == 20 && T == 4) {
-    ModelView<20, 4> m{mf, mi};
-    for (int k = 0; k < K; ++k)
-      cost[k] = rollout_pick_thread<20, 4>(k, m, c, contact, implicit, n_substeps, H, spec,
-                                           ctrl_seqs, state0);
-    return 0;
-  }
-  return -1;
-}
-
 // the cooperative kernels' device code on host threads: a team of S
 // threads behind one barrier (S = 1: no barrier), as one warp on the card
 struct HostBarrier {
@@ -521,6 +476,90 @@ void run_team(F f) {
   for (int t = 0; t < S; ++t) threads.emplace_back([&, t] { f(t, &bar); });
   for (auto& th : threads) th.join();
   pthread_barrier_destroy(&bar);
+}
+
+// The team kernels K1 and K2 (csrc/substep_team.cuh, csrc/rollout.cuh) on
+// one team of S host threads (the shape of one of a block's teams on the
+// card), the team running the batch's rows one after another.
+template <int V>
+using IC = std::integral_constant<int, V>;
+
+// f(nq, T, contact, implicit, S) with compile-time values, for the model
+// of nq = HOST_NQ (each team part is compiled once per model); -1 for
+// another
+template <class F>
+int with_team(int threads, int nq, int T, int contact, int implicit, F f) {
+  auto modes = [&](auto n, auto t, auto s) {
+    if (contact && implicit) f(n, t, IC<1>{}, IC<1>{}, s);
+    else if (contact) f(n, t, IC<1>{}, IC<0>{}, s);
+    else if (implicit) f(n, t, IC<0>{}, IC<1>{}, s);
+    else f(n, t, IC<0>{}, IC<0>{}, s);
+  };
+  auto widths = [&](auto n, auto t) {
+    if (threads == 1) modes(n, t, IC<1>{});
+    else if (threads == 4) modes(n, t, IC<4>{});
+    else return -1;
+    return 0;
+  };
+#if HOST_NQ == 10
+  if (nq == 10 && T == 2) return widths(IC<10>{}, IC<2>{});
+#elif HOST_NQ == 20
+  if (nq == 20 && T == 4) return widths(IC<20>{}, IC<4>{});
+#endif
+  return -1;
+}
+
+"""
+
+# the harness in three parts: the serial references, K3, K4 and the staged
+# and floor kernels; the team substep K1; the team pick-cost rollout K2 (the
+# last two compiled once per model)
+_HOST_HARNESS = (r"""extern "C" int host_substep(int nq, int T, const float* mf, const int* mi, double dt,
+    int contact, int implicit, int K, const float* qpos, const float* qvel,
+    const float* ctrl, const float* cube13, float* qo, float* vo, float* co,
+    bool* touch, float* xp, float* xq) {
+  using namespace kmanip;
+  const StepConsts c = make_consts(dt);
+  if (nq == 10 && T == 2) {
+    ModelView<10, 2> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      substep_rollout<10, 2>(k, m, c, contact, implicit, qpos, qvel, ctrl, cube13,
+                             qo, vo, co, touch, xp, xq);
+    return 0;
+  }
+  if (nq == 20 && T == 4) {
+    ModelView<20, 4> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      substep_rollout<20, 4>(k, m, c, contact, implicit, qpos, qvel, ctrl, cube13,
+                             qo, vo, co, touch, xp, xq);
+    return 0;
+  }
+  return -1;
+}
+
+// the serial references of the team kernels K1 (above) and K2
+// (csrc/rollout.cuh), rollout by rollout
+extern "C" int host_rollout_pick(int nq, int T, const float* mf, const int* mi, double dt,
+    int contact, int implicit, int n_substeps, int K, int H, const float* spec_f,
+    const int* spec_i, const float* ctrl_seqs, const float* state0, float* cost) {
+  using namespace kmanip;
+  const StepConsts c = make_consts(dt);
+  const PickSpec spec = make_pick_spec(spec_f, spec_i);
+  if (nq == 10 && T == 2) {
+    ModelView<10, 2> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      cost[k] = rollout_pick_thread<10, 2>(k, m, c, contact, implicit, n_substeps, H, spec,
+                                           ctrl_seqs, state0);
+    return 0;
+  }
+  if (nq == 20 && T == 4) {
+    ModelView<20, 4> m{mf, mi};
+    for (int k = 0; k < K; ++k)
+      cost[k] = rollout_pick_thread<20, 4>(k, m, c, contact, implicit, n_substeps, H, spec,
+                                           ctrl_seqs, state0);
+    return 0;
+  }
+  return -1;
 }
 
 // K3: the team rollout (csrc/feedback_warp.cuh), one team per step size
@@ -611,6 +650,52 @@ extern "C" int host_rollout_feedback(int threads, int nq, int T, const float* mf
   KMANIP_FEEDBACK(20, 4)
 #undef KMANIP_FEEDBACK
   return -1;
+}
+
+// contacts.cube_table's `touching` of each of K cubes (13 floats each)
+extern "C" void host_cube_on_table(int K, const float* cube13, bool* out) {
+  for (int k = 0; k < K; ++k) out[k] = kmanip::cube_on_table(kmanip::cube_from(cube13 + 13 * k));
+}
+
+// The contacts a serial pick rollout over substep_core makes: the number
+// of (rollout, control step) pairs with a fingertip on the cube, and with
+// the post-step cube on the table.
+extern "C" int host_pick_contacts(int nq, int T, const float* mf, const int* mi, double dt,
+    int implicit, int n_substeps, int K, int H, const float* ctrl_seqs, const float* state0,
+    int* n_touch, int* n_table) {
+  using namespace kmanip;
+  const StepConsts c = make_consts(dt);
+  *n_touch = *n_table = 0;
+  auto run = [&](auto n, auto t) {
+    constexpr int NQ = decltype(n)::value, TT = decltype(t)::value;
+    const ModelView<NQ, TT> m{mf, mi};
+    const int nu = m.nu();
+    for (int k = 0; k < K; ++k) {
+      float q[NQ], v[NQ], u[NQ];
+      for (int i = 0; i < NQ; ++i) {
+        q[i] = state0[i];
+        v[i] = state0[NQ + i];
+        u[i] = 0.f;
+      }
+      Cube cube = cube_from(state0 + 2 * NQ);
+      bool touch[TT];
+      V3 x[NQ];
+      Q4 qq[NQ];
+      for (int h = 0; h < H; ++h) {
+        for (int i = 0; i < nu; ++i) u[i] = ctrl_seqs[(k * H + h) * nu + i];
+        for (int s = 0; s < n_substeps; ++s)
+          substep_core<NQ, TT>(m, c, true, implicit, q, v, u, cube, touch, x, qq);
+        bool any = false;
+        for (int i = 0; i < TT; ++i) any = any || touch[i];
+        *n_touch += any;
+        *n_table += cube_on_table(cube);
+      }
+    }
+  };
+  if (nq == 10 && T == 2) run(IC<10>{}, IC<2>{});
+  else if (nq == 20 && T == 4) run(IC<20>{}, IC<4>{});
+  else return -1;
+  return 0;
 }
 
 // the single-threaded block code of the floor experiment
@@ -737,30 +822,118 @@ extern "C" void host_sweep_floor(int variant, int H, int n, int m, const float* 
   kmanip::sweep_floor_block(0, 1, NoSync{}, variant, H, n, m, AB, cx, cu, cxx, cuu, cux, WT,
                             ks, Ks, sm.data());
 }
-"""
+""", r"""extern "C" int host_substep_team(int threads, int nq, int T, const float* mf, const int* mi,
+    double dt, int contact, int implicit, int K, const float* qpos, const float* qvel,
+    const float* ctrl, const float* cube13, float* qo, float* vo, float* co, bool* touch,
+    float* xp, float* xq) {
+  using namespace kmanip;
+  const StepConsts c = make_consts(dt);
+  return with_team(threads, nq, T, contact, implicit, [&](auto n, auto t, auto ct, auto im,
+                                                          auto s) {
+    constexpr int NQ = decltype(n)::value, TT = decltype(t)::value, S = decltype(s)::value;
+    std::vector<TeamModel<NQ, TT>> M(1);
+    std::vector<TeamWork<NQ, TT>> w(1);
+    float slot[S];
+    run_team<S>([&](int lane, pthread_barrier_t* bar) {
+      const HostTeam<S> team{lane, bar, slot};
+      team_model_load(M[0], lane, S, mf, mi, c, (bool)decltype(im)::value,
+                      [&] { team.sync(); });
+      for (int k = 0; k < K; ++k)
+        substep_team_row<NQ, TT, (bool)decltype(ct)::value, (bool)decltype(im)::value>(
+            team, M[0], w[0], c, k, true, qpos, qvel, ctrl, cube13, qo, vo, co, touch, xp, xq);
+    });
+  });
+}
+
+""", r"""extern "C" int host_rollout_pick_team(int threads, int nq, int T, const float* mf,
+    const int* mi, double dt, int contact, int implicit, int n_substeps, int K, int H,
+    const float* spec_f, const int* spec_i, const float* ctrl_seqs, const float* state0,
+    float* cost) {
+  using namespace kmanip;
+  const StepConsts c = make_consts(dt);
+  const PickSpec spec = make_pick_spec(spec_f, spec_i);
+  return with_team(threads, nq, T, contact, implicit, [&](auto n, auto t, auto ct, auto im,
+                                                          auto s) {
+    constexpr int NQ = decltype(n)::value, TT = decltype(t)::value, S = decltype(s)::value;
+    std::vector<TeamModel<NQ, TT>> M(1);
+    std::vector<TeamWork<NQ, TT>> w(1);
+    std::vector<float> stage(2 * NQ);
+    float slot[S];
+    run_team<S>([&](int lane, pthread_barrier_t* bar) {
+      const HostTeam<S> team{lane, bar, slot};
+      team_model_load(M[0], lane, S, mf, mi, c, (bool)decltype(im)::value,
+                      [&] { team.sync(); });
+      const long nu = ModelView<NQ, TT>{M[0].mf, M[0].mi}.nu();
+      for (int k = 0; k < K; ++k) {
+        const float total =
+            rollout_pick_team<NQ, TT, (bool)decltype(ct)::value, (bool)decltype(im)::value>(
+                team, M[0], w[0], stage.data(), c, n_substeps, H, spec,
+                ctrl_seqs + k * H * nu, state0);
+        if (lane == 0) cost[k] = total;
+      }
+    });
+  });
+}
+
+""")
 
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """The CUDA kernel's device code (csrc/substep.cuh) compiled as host C++,
-    so its arithmetic is checked on a machine without a GPU."""
+    """The CUDA kernels' device code (csrc/*.cuh) compiled as host C++, so
+    its arithmetic is checked on a machine without a GPU: the harness's
+    three parts, one g++ each, all started together, their functions on one
+    object."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to compile the kernel source for the host")
     d = tmp_path_factory.mktemp("host_kernel")
-    src, lib = d / "host_substep.cpp", d / "host_substep.so"
-    src.write_text(_HOST_HARNESS)
-    subprocess.run(
-        [cxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC", "-pthread",
-         "-I", substep_cuda._build.CSRC_DIR, "-o", str(lib), str(src)],
-        check=True, capture_output=True, timeout=120,
-    )
-    so = ctypes.CDLL(str(lib))
+    base, k1, k2 = _HOST_HARNESS
+    # the team parts once per model, their entry points named host_*_team_<nq>
+    parts = [_HOST_PRELUDE + base] + [
+        f"#define HOST_NQ {nq}\n" + _HOST_PRELUDE
+        + re.sub(r"(host_\w+_team)\(", rf"\1_{nq}(", part)
+        for nq in (10, 20) for part in (k1, k2)]
+    procs, libs = [], []
+    for i, part in enumerate(parts):
+        src, lib = d / f"host_part{i}.cpp", d / f"host_part{i}.so"
+        src.write_text(part)
+        procs.append(subprocess.Popen(
+            [cxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC", "-pthread",
+             "-I", substep_cuda._build.CSRC_DIR, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        libs.append(lib)
+    for proc in procs:
+        _, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err
+    names = re.findall(r'extern "C" \w+ (host_\w+)\(', "".join(parts))
+    so = types.SimpleNamespace(**{
+        name: getattr(lib, name) for lib in map(ctypes.CDLL, map(str, libs))
+        for name in names if hasattr(lib, name)})
     P = ctypes.c_void_p
     so.host_substep.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [
         ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int
     ] + [P] * 10
     so.host_substep.restype = ctypes.c_int
+    for nq in (10, 20):
+        f = getattr(so, f"host_substep_team_{nq}")
+        f.argtypes = [ctypes.c_int] * 3 + [P] * 2 + [
+            ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [P] * 10
+        f.restype = ctypes.c_int
+        f = getattr(so, f"host_rollout_pick_team_{nq}")
+        f.argtypes = [ctypes.c_int] * 3 + [P] * 2 + [ctypes.c_double] + [ctypes.c_int] * 5 + [
+            P] * 5
+        f.restype = ctypes.c_int
+    # (threads, nq, ...) -> the model's build
+    so.host_substep_team = lambda threads, nq, *a: getattr(so, f"host_substep_team_{nq}")(
+        threads, nq, *a)
+    so.host_rollout_pick_team = lambda threads, nq, *a: getattr(
+        so, f"host_rollout_pick_team_{nq}")(threads, nq, *a)
+    so.host_pick_contacts.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_double] + [
+        ctypes.c_int] * 4 + [P] * 4
+    so.host_pick_contacts.restype = ctypes.c_int
+    so.host_cube_on_table.argtypes = [ctypes.c_int, P, P]
+    so.host_cube_on_table.restype = None
     so.host_rollout_pick.argtypes = [ctypes.c_int] * 2 + [P] * 2 + [ctypes.c_double] + [
         ctypes.c_int] * 5 + [P] * 5
     so.host_rollout_pick.restype = ctypes.c_int
@@ -887,6 +1060,92 @@ def test_rollout_kernel_sources_match_plain_on_host(host_kernel, name):
     assert kernel64 <= 2 * plain64
     np.testing.assert_allclose(us, wus.numpy(), atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(xs, wxs.numpy(), atol=5e-4, rtol=1e-3)
+
+
+def _host_substep(host_kernel, threads, m, dt, contact, implicit, inputs):
+    """One substep of the batch `inputs` on the host build: threads = 0 the
+    serial substep_rollout, 1 or 4 the team substep on that many threads."""
+    K, nq, T = inputs[0].shape[0], m.nq, len(m.fingertips)
+    mf, mi = substep_cuda.pack_model(m)
+    out = [np.zeros((K, nq), np.float32), np.zeros((K, nq), np.float32),
+           np.zeros((K, 13), np.float32), np.zeros((K, T), bool),
+           np.zeros((K, nq, 3), np.float32), np.zeros((K, nq, 4), np.float32)]
+    args = (nq, T, _ptr(mf), _ptr(mi), dt, int(contact), int(implicit), K,
+            *(_ptr(a) for a in inputs), *(_ptr(o) for o in out))
+    rc = (host_kernel.host_substep(*args) if threads == 0
+          else host_kernel.host_substep_team(threads, *args))
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+@pytest.mark.parametrize("dt,implicit", MODES)
+@pytest.mark.parametrize("contact", [True, False])
+def test_substep_team_matches_serial_on_host(host_kernel, name, dt, implicit, contact):
+    """K1's team substep (csrc/substep_team.cuh) on one thread and on a team
+    of four threads behind a barrier: bit for bit the serial substep_rollout
+    over substep_core, every output. The seeded inputs put fingertips on
+    the cube (even rows) and the cube on the table (odd rows), so the tip
+    and corner lanes of the contact model run."""
+    m = from_numpy_model(jax_get_model(name))
+    inputs = substep_cuda.random_inputs(m, 16, seed=7)
+    serial = _host_substep(host_kernel, 0, m, dt, contact, implicit, inputs)
+    on_table = np.zeros(16, bool)
+    host_kernel.host_cube_on_table(16, _ptr(inputs[3]), _ptr(on_table))
+    assert on_table.any() and not on_table.all()
+    assert serial[3].any() == contact
+    for threads in (1, 4):
+        team = _host_substep(host_kernel, threads, m, dt, contact, implicit, inputs)
+        for name_, got, want in zip(("qpos", "qvel", "cube13", "touch", "xpos", "xquat"),
+                                    team, serial):
+            np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8),
+                                          err_msg=f"{name_}, {threads} thread(s)")
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+@pytest.mark.parametrize("dt,implicit", MODES)
+def test_rollout_pick_team_matches_serial_on_host(host_kernel, name, dt, implicit):
+    """K2's team rollout (csrc/rollout.cuh) at H=8 with contact, on one
+    thread and on a team of four threads behind a barrier: bit for bit the
+    serial rollout_pick_thread's totals (at dt=0.002 two substeps per
+    control step), from two start states: the cube at rest on the table,
+    and the cube at the first fingertip. The serial rollouts have the cube
+    on the table and a fingertip on it at some steps."""
+    m = from_numpy_model(jax_get_model(name))
+    nq, nu, T = m.nq, m.nu, len(m.fingertips)
+    mf, mi = substep_cuda.pack_model(m)
+    home = torch.as_tensor(m.home_qpos, dtype=torch.float32)
+    tip0 = engine._tips_from_frames(m, *kin.fk(m, home)[:2])[0].numpy()
+    K, H, n_sub = 8, 8, 1 if dt == 0.02 else 2
+    rng = np.random.RandomState(9)
+    U = (m.home_qpos[:nu] + 0.1 * rng.randn(K, H, nu)).astype(np.float32)
+    spec_f, spec_i = rollout_pick_cuda.spec_arrays(
+        m, rollout_pick_cuda.PickCostSpec(use_left=T > 2))
+    touched = on_table = 0
+    for cube_pos in (np.array([0.25, 0.5, 0.62]), tip0):
+        s0 = init_state(m, cube_pos=cube_pos, device="cpu")
+        start = torch.cat([s0.qpos, s0.qvel, s0.cube_pos, s0.cube_quat, s0.cube_linvel,
+                           s0.cube_angvel]).numpy()
+        n_touch, n_table = ctypes.c_int(), ctypes.c_int()
+        assert host_kernel.host_pick_contacts(
+            nq, T, _ptr(mf), _ptr(mi), dt, int(implicit), n_sub, K, H, _ptr(U), _ptr(start),
+            ctypes.byref(n_touch), ctypes.byref(n_table)) == 0
+        touched += n_touch.value
+        on_table += n_table.value
+        costs = {}
+        for threads in (0, 1, 4):
+            cost = np.zeros(K, np.float32)
+            args = (nq, T, _ptr(mf), _ptr(mi), dt, 1, int(implicit), n_sub, K, H,
+                    _ptr(spec_f), _ptr(spec_i), _ptr(U), _ptr(start), _ptr(cost))
+            rc = (host_kernel.host_rollout_pick(*args) if threads == 0
+                  else host_kernel.host_rollout_pick_team(threads, *args))
+            assert rc == 0 and np.isfinite(cost).all()
+            costs[threads] = cost
+        for threads in (1, 4):
+            np.testing.assert_array_equal(costs[threads].view(np.uint32),
+                                          costs[0].view(np.uint32),
+                                          err_msg=f"{threads} thread(s) vs serial")
+    assert touched > 0 and on_table > 0, (touched, on_table)
 
 
 @pytest.mark.parametrize("H,n,m,indefinite", [(5, 20, 10, False), (3, 40, 20, False),
