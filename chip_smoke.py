@@ -4,9 +4,10 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. build:       compile the eight CUDA libraries from gym_kmanip_torch/csrc,
-                  and K1 and K2 with the solo-width team shapes they were
-                  not built with (ALTERNATES), one nvcc each, all at once;
-                  ptxas's registers, stack and spills of every kernel.
+                  K1 and K2 with the solo-width team shapes they were not
+                  built with, and K5 and K7 with their other items per block
+                  (ALTERNATES), one nvcc each, all at once; ptxas's
+                  registers, stack and spills of every kernel.
   2. K1 substep:  at K=256, random solo-arm states from a seed, in MPC mode
                   (dt=0.02, implicit actuation) and env mode (dt=0.002,
                   explicit): the kernel against its plain PyTorch version
@@ -63,7 +64,11 @@ Phases (any failure raises, and the script exits non-zero):
                   against the plain route on one injected draw at H=4 (u0
                   1e-5, J 1e-4, nominal 1e-5), solves/s (5 x 5 solves) beside
                   the K1 and fused routes, and a torch.profiler breakdown of 2 solves
-                  (device busy, kernel launches, the largest kernels).
+                  (device busy, kernel launches, the largest kernels). Then
+                  K5's and K7's device time per launch (torch.profiler) on
+                  the inputs above, and their alternate builds, each checked
+                  as the kernel is (K5 solo, K7 at n=10 and n=20) and timed
+                  the same way.
   9. K8 floor:    the Riccati step's floor experiment
                   (gym_kmanip_torch.tools.exp_sweep_floor) at H=100, n=40,
                   m=20: each of its seven variants against its plain version
@@ -127,10 +132,11 @@ WRAPPERS = {
 }
 STAGED = ("K5", "K6", "K7")  # launched by the staged substep route only
 # The team widths and warps per block that K1 and K2 were not built with at
-# solo width (csrc/substep.cu, csrc/rollout_pick.cu): built with -D beside
-# the kernels, checked against the plain versions and timed beside them.
-# KMANIP_SOLO_ONLY leaves out their torso kernels, which these flags do not
-# change.
+# solo width (csrc/substep.cu, csrc/rollout_pick.cu), and the warps per block
+# that K5 (csrc/rnea.cu, solo width) and K7 (csrc/chol_solve.cu) were not
+# built with: built with -D beside the kernels, checked against the plain
+# versions and timed beside them. KMANIP_SOLO_ONLY leaves out the torso
+# kernels, which these flags do not change.
 ALTERNATES = {
     "K1": (substep_cuda, {
         "16 lanes, 4 warps per block": ("-DKMANIP_SOLO_LANES=16", "-DKMANIP_SOLO_ONLY"),
@@ -138,6 +144,11 @@ ALTERNATES = {
     "K2": (rollout_pick_cuda, {
         "16 lanes, 1 warp per block": ("-DKMANIP_SOLO_LANES=16", "-DKMANIP_SOLO_ONLY"),
         "32 lanes, 4 warps per block": ("-DKMANIP_TEAM_WARPS=4", "-DKMANIP_SOLO_ONLY")}),
+    "K5": (rnea_cuda, {
+        "1 warp per block": ("-DKMANIP_RNEA_WARPS=1", "-DKMANIP_SOLO_ONLY")}),
+    "K7": (chol_solve_cuda, {
+        "1 warp per block": ("-DKMANIP_CHOL_WARPS=1",),
+        "4 warps per block": ("-DKMANIP_CHOL_WARPS=4",)}),
 }
 
 
@@ -149,8 +160,8 @@ def alternate_libraries():
 
 
 class built_with:
-    """Routes the launches of kernel `kernel` ("K1" or "K2") to its
-    alternate build `i` of ALTERNATES for as long as it lasts."""
+    """Routes the launches of kernel `kernel` (a key of ALTERNATES) to its
+    alternate build `i` for as long as it lasts."""
 
     def __init__(self, kernel, i):
         mod, variants = ALTERNATES[kernel]
@@ -868,13 +879,37 @@ def time_pair(fn, ref, n_kernel=200, n_plain=5):
     return ms, plain_ms
 
 
+def k5_errors(tag, m, q, v):
+    """K5 against its plain version: frames 1e-5, bias 1e-4
+    (tests/test_pallas.py:85-88); the largest error."""
+    got = rnea_cuda.rnea_terms_batched(m, q, v)
+    want = plain(rnea_cuda.rnea_terms_batched_reference, m, q, v)
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    for name, e, tol in zip(("xpos", "xquat", "axis", "bias"), errs, (1e-5, 1e-5, 1e-5, 1e-4)):
+        check("K5", f"{tag}: {name}", e, tol)
+    return max(errs)
+
+
+def k7_errors(tag, M, b):
+    """K7 against its plain version and against float64, at 1e-4 of the
+    largest solution entry; the error against the plain version."""
+    got = chol_solve_cuda.cholesky_solve_batched(M, b)
+    want = plain(chol_solve_cuda.cholesky_solve_batched_reference, M, b)
+    want64 = torch.linalg.solve(M.double(), b.double())
+    scale = float(want64.abs().max())
+    err = max_err(got, want)
+    check("K7", f"{tag}: kernel vs plain (solutions up to {scale:.3g})", err, 1e-4 * scale)
+    check("K7", f"{tag}: kernel vs float64", max_err(got.double(), want64), 1e-4 * scale)
+    return err
+
+
 def phase_staged_kernels(model, cost):
     """K5, K6 and K7 against their plain versions on the inputs of a staged
     substep of an MPPI solve (solo, K=256), and on seeded torso inputs;
     their times and bounds. The solve starts with the cube between the
     fingertips, and the inputs are those of its third substep: from rest
     the first substep has no contact, the third has fingertip and table
-    contacts."""
+    contacts. Returns the rows and the K5 and K7 inputs."""
     cfg = MPPIConfig(horizon=H, n_samples=K)
     home = torch.as_tensor(model.home_qpos, dtype=torch.float32, device=DEV)
     tips = engine._tips_from_frames(model, *kin.fk(model, home)[:2])
@@ -888,20 +923,15 @@ def phase_staged_kernels(model, cost):
     torch.cuda.synchronize()
     rows = {}
 
-    # K5: frames 1e-5, bias 1e-4 (tests/test_pallas.py:85-88)
     def k5_check(tag, m, q, v):
-        got = rnea_cuda.rnea_terms_batched(m, q, v)
-        want = plain(rnea_cuda.rnea_terms_batched_reference, m, q, v)
-        errs = [max_err(g, w) for g, w in zip(got, want)]
-        for name, e, tol in zip(("xpos", "xquat", "axis", "bias"), errs, (1e-5, 1e-5, 1e-5, 1e-4)):
-            check("K5", f"{tag}: {name}", e, tol)
+        err = k5_errors(tag, m, q, v)
         k_ = q.shape[0]
         ms, plain_ms = time_pair(lambda: rnea_cuda.rnea_terms_batched(m, q, v),
                                  lambda: rnea_cuda.rnea_terms_batched_reference(m, q, v))
         b = bound(k_ * rnea_flops(m), 4 * k_ * (2 * m.nq + 11 * m.nq))
         log("K5", f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms "
                   f"({b[1]}): {rnea_flops(m)} operations per rollout")
-        return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound=b)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
 
     # K6: forces 1e-4, flags equal (tests/test_pallas.py:135-141)
     def k6_check(tag, m, args):
@@ -924,16 +954,8 @@ def phase_staged_kernels(model, cost):
                   f"({b[1]}): {contact_flops(m)} operations per rollout")
         return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound=b)
 
-    # K7: 1e-4 relative to the largest entry, against the plain version and
-    # against float64
     def k7_check(tag, M, b):
-        got = chol_solve_cuda.cholesky_solve_batched(M, b)
-        want = plain(chol_solve_cuda.cholesky_solve_batched_reference, M, b)
-        want64 = torch.linalg.solve(M.double(), b.double())
-        scale = float(want64.abs().max())
-        err = max_err(got, want)
-        check("K7", f"{tag}: kernel vs plain (solutions up to {scale:.3g})", err, 1e-4 * scale)
-        check("K7", f"{tag}: kernel vs float64", max_err(got.double(), want64), 1e-4 * scale)
+        err = k7_errors(tag, M, b)
         k_, n = b.shape
         ms, plain_ms = time_pair(lambda: chol_solve_cuda.cholesky_solve_batched(M, b),
                                  lambda: chol_solve_cuda.cholesky_solve_batched_reference(M, b))
@@ -974,7 +996,45 @@ def phase_staged_kernels(model, cost):
             r = rows[name].get(key) if key else rows[name]
             if r is not None:
                 r["bound_ms"], r["bound_by"] = r["bound"]
-    return rows
+    inputs = {"K5": (model, q, v), "K5 torso": (torso, tq, tv), "K7": (M, b), "K7 n=20": (M20, b20)}
+    return rows, inputs
+
+
+def phase_staged_device_times(rows, inputs):
+    """Device time per launch (torch.profiler) of K5 and K7 on phase 8's
+    inputs, read after the staged route's rates; then each alternate build
+    of K5 and K7 (ALTERNATES), checked against the plain version as phase 8
+    checks the kernel (K5 on the solo inputs, K7 at n=10 and n=20) and
+    timed the same way."""
+    def k5_device(m, q, v):
+        return kernel_device_ms(lambda: rnea_cuda.rnea_terms_batched(m, q, v), "rnea_kernel")
+
+    def k7_device(M, b):
+        return kernel_device_ms(lambda: chol_solve_cuda.cholesky_solve_batched(M, b),
+                                "chol_solve_kernel")
+
+    rows["K5"]["device_ms"] = k5_device(*inputs["K5"])
+    rows["K5"]["torso"]["device_ms"] = k5_device(*inputs["K5 torso"])
+    rows["K7"]["device_ms"] = k7_device(*inputs["K7"])
+    rows["K7"]["n20"]["device_ms"] = k7_device(*inputs["K7 n=20"])
+    log("K5", f"device time per launch (profiler): {1e3 * rows['K5']['device_ms']:.2f} us solo "
+              f"K={K} (32 lanes, 4 warps per block), {1e3 * rows['K5']['torso']['device_ms']:.2f} "
+              f"us torso (32 lanes, 1 warp per block)")
+    log("K7", f"device time per launch (profiler): {1e3 * rows['K7']['device_ms']:.2f} us at "
+              f"n=10 (16-lane teams), {1e3 * rows['K7']['n20']['device_ms']:.2f} us at n=20 "
+              f"(32-lane teams); 2 warps per block")
+    cases = {"K5": (k5_errors, k5_device, ("K5",)),
+             "K7": (k7_errors, k7_device, ("K7", "K7 n=20"))}
+    for kernel, (errors, device, keys) in cases.items():
+        rows[kernel]["alternates"] = {}
+        for i, label in enumerate(ALTERNATES[kernel][1]):
+            with built_with(kernel, i):
+                err = max(errors(f"{label}, {key}", *inputs[key]) for key in keys)
+                times = [device(*inputs[key]) for key in keys]
+            rows[kernel]["alternates"][label] = dict(max_abs_err=err,
+                                                     device_ms=dict(zip(keys, times)))
+            log(kernel, f"{label}: device time per launch "
+                        + ", ".join(f"{1e3 * t:.2f} us ({key})" for t, key in zip(times, keys)))
 
 
 def phase_staged_mppi(model, cost, k1_rates, fused_rates):
@@ -1150,8 +1210,8 @@ def main():
     ready = _build.build_libraries([m.LIBRARY for m in mods] + alternates)
     for m in mods:
         m._library()
-    log("build", f"{len(mods)} libraries and {len(alternates)} alternate team widths of K1 "
-                 f"and K2 built in parallel and loaded in {time.perf_counter() - t0:.2f} s "
+    log("build", f"{len(mods)} libraries and {len(alternates)} alternate builds of K1, K2, K5 "
+                 f"and K7 built in parallel and loaded in {time.perf_counter() - t0:.2f} s "
                  f"({', '.join(f'{k} {v[0]:.2f} s' for k, v in ready.items())})")
     # ptxas's registers, stack and spills of every kernel, the alternates'
     # too (their solo-width kernels: nq = 10, "ILi10")
@@ -1185,11 +1245,12 @@ def main():
     phase_device_times(model, k1, k2, fused_rates)
     phase_ilqr_torso()
     no_staged_launch("the iLQR phases")
-    staged = phase_staged_kernels(model, pick_cost(model))
+    staged, staged_inputs = phase_staged_kernels(model, pick_cost(model))
     launches, profiled = phase_staged_mppi(model, pick_cost(model), k1_rates, fused_rates)
     for name in STAGED:
         staged[name]["launches"] = launches[name]
         staged[name]["profiled_ms"] = profiled[name]
+    phase_staged_device_times(staged, staged_inputs)
     reset_counts()
     k8 = phase_sweep_floor()
     no_staged_launch("the K8 phase")
@@ -1215,12 +1276,13 @@ def main():
             raise AssertionError(f"{name} was not launched on its main path")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # the row's own numbers are the main path's; a second path or shape
-    # (K1's iLQR probes, the torso, K7 at n = 20, K8's other variants) sits
-    # under a key of its own, as does the device time per launch that the
-    # profiler read on the staged route and in the iLQR solve (profiled_ms)
+    # (K1's iLQR probes, the torso, K7 at n = 20, K8's other variants, the
+    # alternate builds) sits under a key of its own, as does the device time
+    # per launch that the profiler read on the staged route and in the iLQR
+    # solve (profiled_ms), and on phase 8's inputs (device_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     extra = ("ilqr", "torso", "n20", "variants", "k4_ms", "profiled_ms", "profiled_ms_k1500",
-             "teams")
+             "device_ms", "teams", "alternates")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

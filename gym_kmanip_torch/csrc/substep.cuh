@@ -4,11 +4,12 @@
 // package's Pallas row cores op for op:
 // gym_kmanip_tpu/ops/pallas_dynamics.py::_rnea_rows,
 // ops/pallas_contacts.py::_contact_rows and
-// ops/pallas_substep.py::_substep_core. The staged kernels K5-K7
-// (staged.cuh) run these per item; the team substep of K1, K2 and K3
-// (substep_team.cuh) splits the same arithmetic over the lanes of a warp,
-// calling the same helpers, and substep_core is its serial reference on the
-// host build.
+// ops/pallas_substep.py::_substep_core. The staged kernels' per-item code
+// (staged.cuh) runs these; the team substep of K1, K2 and K3
+// (substep_team.cuh), and K5 and K7 on its pieces, split the same
+// arithmetic over the lanes of a warp, calling the same helpers, and
+// substep_core, rnea_rows, chol_factor and chol_solve are their serial
+// references on the host build.
 //
 // Numerics: float32 throughout, like JAX with x64 off. Constants are
 // written in double and rounded to float at use, which is what JAX does

@@ -3,7 +3,10 @@
 // everything it does, the contact model, explicit or implicit actuation
 // and the cube's free body, each a compile-time choice. K1 (one substep per
 // rollout, substep.cu), K2 (the pick-cost rollout, rollout_pick.cu) and K3
-// (the feedback rollout, rollout_feedback.cu) all run this one copy.
+// (the feedback rollout, rollout_feedback.cu) all run this one copy, and
+// the staged route's FK + RNEA (K5) and SPD solve (K7, staged_team.cuh)
+// run its FK, inertial loads, backward pass and factor (fk_team,
+// inertial_loads_team, rnea_backward_team, chol_factor_team).
 // Written against a team (team.cuh: a lane index, a lane count, a sync and
 // a broadcast), so the host test harness runs it with one thread or with
 // several host threads behind a barrier.
@@ -78,6 +81,14 @@ struct TeamWork {
   float tau[NQ], df[2][NQ];
 };
 
+// Joint i's depth in the tree: the number of its ancestors but itself.
+template <int NQ, int T>
+__device__ __forceinline__ int joint_depth(const ModelView<NQ, T>& m, int i) {
+  int d = 0;
+  for (int p = m.parent(i); p >= 0; p = m.parent(p)) ++d;
+  return d;
+}
+
 // Copies the model into M and derives the tree's levels, the pairs and
 // the diagonal terms; thread tid of nthreads, `sync` a barrier over all of
 // them (the block's, or one team's).
@@ -93,10 +104,9 @@ __device__ void team_model_load(TeamModel<NQ, T>& M, int tid, int nthreads,
   const int nu = m.nu();
   // each joint's depth in the tree and its number of ancestors
   for (int i = tid; i < NQ; i += nthreads) {
-    int d = 0, n = 0;
-    for (int p = m.parent(i); p >= 0; p = m.parent(p)) ++d;
+    int n = 0;
     for (int j = 0; j < NQ; ++j) n += m.anc(i, j) ? 1 : 0;
-    M.depth[i] = d;
+    M.depth[i] = joint_depth(m, i);
     M.pair_count[i] = n;
   }
   sync();
@@ -128,20 +138,57 @@ __device__ void team_model_load(TeamModel<NQ, T>& M, int tid, int nthreads,
   sync();
 }
 
-// Each lane's model constants: its joints i = lane + r SIZE and its mass
-// matrix entries e = lane + r SIZE, kept in registers.
-template <int NQ, int T, int S>
-struct LaneConsts {
+// What the tree recursion (FK, inertial loads, RNEA backward pass) reads
+// of each lane's joints i = lane + r SIZE, kept in registers.
+template <int NQ, int S>
+struct TreeConsts {
   static constexpr int RPL = (NQ + S - 1) / S;
-  static constexpr int RPE = (NQ * (NQ + 1) / 2 + S - 1) / S;
-  int nu;
   int parent[RPL], depth[RPL], n_children[RPL];
   int child[RPL][NQ - 1];  // child joints in ascending order
-  unsigned tips[RPL];      // bit mask: the fingertips below the joint
   bool hinge[RPL];
   V3 jpos[RPL], com[RPL], inertia[RPL];
   Q4 jquat[RPL];
-  float mass[RPL], kp[RPL], kp_dt[RPL], flo[RPL], fhi[RPL], rlo[RPL], rhi[RPL], fl[RPL];
+  float mass[RPL];
+};
+
+// The lane's tree constants from the model and the joints' depths.
+template <int NQ, int T, int S>
+__device__ __forceinline__ void load_tree_consts(TreeConsts<NQ, S>& k, const ModelView<NQ, T>& m,
+                                                 const int* depth, int lane) {
+#pragma unroll
+  for (int r = 0; r < TreeConsts<NQ, S>::RPL; ++r) {
+    const int i = lane + r * S < NQ ? lane + r * S : NQ - 1;
+    k.parent[r] = m.parent(i);
+    k.depth[r] = depth[i];
+    k.hinge[r] = m.hinge(i);
+    int nc = 0;
+#pragma unroll
+    for (int ci = 0; ci < NQ - 1; ++ci) k.child[r][ci] = 0;
+    for (int ch = i + 1; ch < NQ; ++ch) {
+      if (m.parent(ch) != i) continue;
+#pragma unroll
+      for (int ci = 0; ci < NQ - 1; ++ci)
+        if (ci == nc) k.child[r][ci] = ch;
+      ++nc;
+    }
+    k.n_children[r] = nc;
+    k.jpos[r] = m.jnt_pos(i);
+    k.jquat[r] = m.jnt_quat(i);
+    k.com[r] = m.com(i);
+    k.inertia[r] = m.inertia(i);
+    k.mass[r] = m.mass(i);
+  }
+}
+
+// Each lane's model constants: the tree's, and the rest of its joints'
+// and its mass matrix entries e = lane + r SIZE, kept in registers.
+template <int NQ, int T, int S>
+struct LaneConsts : TreeConsts<NQ, S> {
+  static constexpr int RPL = TreeConsts<NQ, S>::RPL;
+  static constexpr int RPE = (NQ * (NQ + 1) / 2 + S - 1) / S;
+  int nu;
+  unsigned tips[RPL];  // bit mask: the fingertips below the joint
+  float kp[RPL], kp_dt[RPL], flo[RPL], fhi[RPL], rlo[RPL], rhi[RPL], fl[RPL];
   float lo[RPL], hi[RPL];  // control range (the feedback rollout's clip)
   int ej[RPE], ek[RPE];
   unsigned ebodies[RPE];  // bodies i with anc(i, j) and anc(i, k)
@@ -157,32 +204,14 @@ __device__ __forceinline__ LaneConsts<NQ, T, S> lane_consts(const TeamModel<NQ, 
   const ModelView<NQ, T> m{M.mf, M.mi};
   const int nu = m.nu();
   LC k;
+  load_tree_consts<NQ, T, S>(k, m, M.depth, lane);
   k.nu = nu;
 #pragma unroll
   for (int r = 0; r < LC::RPL; ++r) {
     const int i = lane + r * S < NQ ? lane + r * S : NQ - 1;
-    k.parent[r] = m.parent(i);
-    k.depth[r] = M.depth[i];
-    k.hinge[r] = m.hinge(i);
-    int nc = 0;
-#pragma unroll
-    for (int ci = 0; ci < NQ - 1; ++ci) k.child[r][ci] = 0;
-    for (int ch = i + 1; ch < NQ; ++ch) {
-      if (m.parent(ch) != i) continue;
-#pragma unroll
-      for (int ci = 0; ci < NQ - 1; ++ci)
-        if (ci == nc) k.child[r][ci] = ch;
-      ++nc;
-    }
-    k.n_children[r] = nc;
     k.tips[r] = 0u;
     for (int t = 0; t < T; ++t)
       if (m.anc(m.tip_parent(t), i)) k.tips[r] |= 1u << t;
-    k.jpos[r] = m.jnt_pos(i);
-    k.jquat[r] = m.jnt_quat(i);
-    k.com[r] = m.com(i);
-    k.inertia[r] = m.inertia(i);
-    k.mass[r] = m.mass(i);
     k.kp[r] = m.kp(i);
     k.kp_dt[r] = (float)(c.dt * (double)m.kp(i));
     k.flo[r] = m.force_lo(i);
@@ -230,11 +259,11 @@ __device__ __forceinline__ float div_by(float s, float d, float r) {
   return s == 0.f ? q0 : fma_rn(fma_rn(-q0, d, s), r, q0);
 }
 
-// chol_solve on b in registers: the factor's rows from L, its diagonal
-// from Ld with reciprocals Lr.
+// chol_solve's two substitutions on b in registers: the factor's rows from
+// L (packed), its diagonal from Ld with reciprocals Lr. L y = b:
 template <int NQ>
-__device__ __forceinline__ void solve_regs(const float* L, const float* Ld, const float* Lr,
-                                           float (&b)[NQ]) {
+__device__ __forceinline__ void solve_lower_regs(const float* L, const float* Ld, const float* Lr,
+                                                 float (&b)[NQ]) {
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
     float s = b[i];
@@ -242,12 +271,204 @@ __device__ __forceinline__ void solve_regs(const float* L, const float* Ld, cons
     for (int k = 0; k < i; ++k) s = s - L[tri(i, k)] * b[k];
     b[i] = div_by(s, Ld[i], Lr[i]);
   }
+}
+
+// L^T x = y:
+template <int NQ>
+__device__ __forceinline__ void solve_upper_regs(const float* L, const float* Ld, const float* Lr,
+                                                 float (&b)[NQ]) {
 #pragma unroll
   for (int i = NQ - 1; i >= 0; --i) {
     float s = b[i];
 #pragma unroll
     for (int k = i + 1; k < NQ; ++k) s = s - L[tri(k, i)] * b[k];
     b[i] = div_by(s, Ld[i], Lr[i]);
+  }
+}
+
+// Both: chol_solve on b in registers.
+template <int NQ>
+__device__ __forceinline__ void solve_regs(const float* L, const float* Ld, const float* Lr,
+                                           float (&b)[NQ]) {
+  solve_lower_regs<NQ>(L, Ld, Lr, b);
+  solve_upper_regs<NQ>(L, Ld, Lr, b);
+}
+
+// The FK recursion level by level of the tree (rnea_rows' forward loop):
+// all joints of one depth at once, a sync per level. Each lane leaves its
+// joints' frame (x, qq), axis, velocities (w, vb) and accelerations
+// (alpha, a) in s, from their positions q and velocities v. s is a working
+// set with those arrays (TeamWork, or K5's TreeWork).
+template <int NQ, int S, class Team, class W>
+__device__ __forceinline__ void fk_team(const Team& team, const TreeConsts<NQ, S>& k,
+                                        int max_depth,
+                                        const float (&q)[TreeConsts<NQ, S>::RPL],
+                                        const float (&v)[TreeConsts<NQ, S>::RPL], W& s) {
+  constexpr int RPL = TreeConsts<NQ, S>::RPL;
+  const int lane = team.lane;
+  const V3 zero{0.f, 0.f, 0.f};
+  const V3 ez{0.f, 0.f, 1.f};
+  float cs[RPL], sn[RPL];
+#pragma unroll
+  for (int r = 0; r < RPL; ++r) {
+    cs[r] = sn[r] = 0.f;
+    if (lane + r * S < NQ && k.hinge[r]) {
+      float half = 0.5f * q[r];
+      cs[r] = cosf(half);
+      sn[r] = sinf(half);
+    }
+  }
+  for (int d = 0; d <= max_depth; ++d) {
+#pragma unroll
+    for (int r = 0; r < RPL; ++r) {
+      const int i = lane + r * S;
+      if (i >= NQ || k.depth[r] != d) continue;
+      const int par = k.parent[r];
+      V3 xp, wp, vp, alp, ap;
+      Q4 qp;
+      if (par < 0) {
+        xp = zero;
+        qp = Q4{1.f, 0.f, 0.f, 0.f};
+        wp = zero;
+        vp = zero;
+        alp = zero;
+        ap = V3{0.f, 0.f, (float)(-GRAV_Z)};
+      } else {
+        xp = s.x[par];
+        qp = s.qq[par];
+        wp = s.w[par];
+        vp = s.vb[par];
+        alp = s.alpha[par];
+        ap = s.a[par];
+      }
+      V3 rr = qrot(qp, k.jpos[r]);
+      V3 xi = xp + rr;
+      Q4 qi = qmul(qp, k.jquat[r]);
+      V3 wi, ali, vi, ai, ax;
+      const float qv = q[r], vv = v[r];
+      if (k.hinge[r]) {
+        qi = qmul(qi, Q4{cs[r], 0.f, 0.f, sn[r]});
+        ax = qrot(qi, ez);
+        wi = wp + ax * vv;
+        ali = alp + cross(wp, ax * vv);
+        vi = vp + cross(wp, rr);
+        ai = ap + cross(alp, rr) + cross(wp, cross(wp, rr));
+      } else {
+        ax = qrot(qi, ez);
+        xi = xi + ax * qv;
+        wi = wp;
+        ali = alp;
+        V3 r_eff = rr + ax * qv;
+        vi = vp + cross(wp, r_eff) + ax * vv;
+        ai = ap + cross(alp, r_eff) + cross(wp, cross(wp, r_eff)) + cross(wp, ax * vv) * 2.f;
+      }
+      s.x[i] = xi;
+      s.qq[i] = qi;
+      s.axis[i] = ax;
+      s.w[i] = wi;
+      s.vb[i] = vi;
+      s.alpha[i] = ali;
+      s.a[i] = ai;
+    }
+    team.sync();
+  }
+}
+
+// The inertial loads at each COM (rnea_rows): each lane its joints' force
+// F and moment Nt into s, and their COM offsets cb; reads the frames that
+// fk_team left. Another lane may read them only after a sync (the backward
+// pass's first level reads only each lane's own joints).
+template <int NQ, int S, class W>
+__device__ __forceinline__ void inertial_loads_team(int lane, const TreeConsts<NQ, S>& k, W& s,
+                                                    V3 (&cb)[TreeConsts<NQ, S>::RPL]) {
+#pragma unroll
+  for (int r = 0; r < TreeConsts<NQ, S>::RPL; ++r) {
+    const int i = lane + r * S;
+    if (i >= NQ) continue;
+    const Q4 qi = s.qq[i];
+    const V3 ai = s.a[i], ali = s.alpha[i], wi = s.w[i];
+    V3 ci = qrot(qi, k.com[r]);
+    V3 a_com = ai + cross(ali, ci) + cross(wi, cross(wi, ci));
+    M3 R = quat_to_mat(qi);
+    cb[r] = ci;
+    s.F[i] = a_com * k.mass[r];
+    s.Nt[i] = iw_mul(R, k.inertia[r], ali) + cross(wi, iw_mul(R, k.inertia[r], wi));
+  }
+}
+
+// The RNEA backward pass level by level: each joint's F and Nt gather its
+// children's (in ascending order, as rnea_rows'), a sync per level. Leaves
+// each lane's joints' bias force, axis and origin in bias, axr, xr.
+template <int NQ, int S, class Team, class W>
+__device__ __forceinline__ void rnea_backward_team(const Team& team, const TreeConsts<NQ, S>& k,
+                                                   int max_depth,
+                                                   const V3 (&cb)[TreeConsts<NQ, S>::RPL], W& s,
+                                                   float (&bias)[TreeConsts<NQ, S>::RPL],
+                                                   V3 (&axr)[TreeConsts<NQ, S>::RPL],
+                                                   V3 (&xr)[TreeConsts<NQ, S>::RPL]) {
+  const int lane = team.lane;
+  for (int d = max_depth; d >= 0; --d) {
+#pragma unroll
+    for (int r = 0; r < TreeConsts<NQ, S>::RPL; ++r) {
+      const int i = lane + r * S;
+      if (i >= NQ || k.depth[r] != d) continue;
+      const V3 Fo = s.F[i], xi = s.x[i], axi = s.axis[i];
+      V3 Fi = Fo;
+      V3 Ni = s.Nt[i] + cross(cb[r], Fo);
+#pragma unroll
+      for (int ci = 0; ci < NQ - 1; ++ci) {
+        if (ci >= k.n_children[r]) break;
+        const int ch = k.child[r][ci];
+        const V3 Fc = s.F[ch];
+        Fi = Fi + Fc;
+        Ni = Ni + s.Nt[ch] + cross(s.x[ch] - xi, Fc);
+      }
+      s.F[i] = Fi;
+      s.Nt[i] = Ni;
+      bias[r] = k.hinge[r] ? dot(axi, Ni) : dot(axi, Fi);
+      axr[r] = axi;
+      xr[r] = xi;
+    }
+    team.sync();
+  }
+}
+
+// The Cholesky factor of an N x N SPD matrix, right-looking: lane i holds
+// row i in row[i / SIZE] (its entries past the diagonal are never read);
+// pivot j's d and each scaled entry L[k][j] are broadcast. Element (i, k)
+// sees the same subtractions in the same order as chol_factor's
+// left-looking sums, and the same scaling by 1 / d; a non-positive pivot
+// gives a NaN, as sqrtf does. Leaves L[i][k] (k < i) in the row, and d_j and
+// 1 / d_j in Ld[j] and Lr[j], written by row j's lane.
+template <int N, class Team>
+__device__ __forceinline__ void chol_factor_team(
+    const Team& team, float (&row)[(N + Team::SIZE - 1) / Team::SIZE][N], float* Ld,
+    float* Lr) {
+  constexpr int S = Team::SIZE, RPL = (N + S - 1) / S;
+  const int lane = team.lane;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float sd = team.bcast(row[j / S][j], j % S);
+    const float dj = sqrtf(sd);
+    const float inv_d = 1.f / dj;
+    float l[RPL];
+#pragma unroll
+    for (int r = 0; r < RPL; ++r) {
+      const int i = lane + r * S;
+      l[r] = row[r][j] * inv_d;
+      row[r][j] = i > j ? l[r] : row[r][j];
+    }
+#pragma unroll
+    for (int kk = j + 1; kk < N; ++kk) {
+      const float lk = team.bcast(l[kk / S], kk % S);
+#pragma unroll
+      for (int r = 0; r < RPL; ++r)  // entries above the diagonal are never read
+        row[r][kk] = row[r][kk] - l[r] * lk;
+    }
+    if (lane == j % S) {
+      Ld[j] = dj;
+      Lr[j] = 1.f / dj;
+    }
   }
 }
 
@@ -287,92 +508,14 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
   using CN = Corners<S>;
   const int lane = team.lane;
   const V3 zero{0.f, 0.f, 0.f};
-  const V3 ez{0.f, 0.f, 1.f};
-
-  float cs[RPL], sn[RPL];
-#pragma unroll
-  for (int r = 0; r < RPL; ++r) {
-    cs[r] = sn[r] = 0.f;
-    if (lane + r * S < NQ && k.hinge[r]) {
-      float half = 0.5f * st.q[r];
-      cs[r] = cosf(half);
-      sn[r] = sinf(half);
-    }
-  }
-  // FK, level by level (rnea_rows' forward loop)
-  for (int d = 0; d <= M.max_depth; ++d) {
-#pragma unroll
-    for (int r = 0; r < RPL; ++r) {
-      const int i = lane + r * S;
-      if (i >= NQ || k.depth[r] != d) continue;
-      const int par = k.parent[r];
-      V3 xp, wp, vp, alp, ap;
-      Q4 qp;
-      if (par < 0) {
-        xp = zero;
-        qp = Q4{1.f, 0.f, 0.f, 0.f};
-        wp = zero;
-        vp = zero;
-        alp = zero;
-        ap = V3{0.f, 0.f, (float)(-GRAV_Z)};
-      } else {
-        xp = s.x[par];
-        qp = s.qq[par];
-        wp = s.w[par];
-        vp = s.vb[par];
-        alp = s.alpha[par];
-        ap = s.a[par];
-      }
-      V3 rr = qrot(qp, k.jpos[r]);
-      V3 xi = xp + rr;
-      Q4 qi = qmul(qp, k.jquat[r]);
-      V3 wi, ali, vi, ai, ax;
-      const float qv = st.q[r], vv = st.v[r];
-      if (k.hinge[r]) {
-        qi = qmul(qi, Q4{cs[r], 0.f, 0.f, sn[r]});
-        ax = qrot(qi, ez);
-        wi = wp + ax * vv;
-        ali = alp + cross(wp, ax * vv);
-        vi = vp + cross(wp, rr);
-        ai = ap + cross(alp, rr) + cross(wp, cross(wp, rr));
-      } else {
-        ax = qrot(qi, ez);
-        xi = xi + ax * qv;
-        wi = wp;
-        ali = alp;
-        V3 r_eff = rr + ax * qv;
-        vi = vp + cross(wp, r_eff) + ax * vv;
-        ai = ap + cross(alp, r_eff) + cross(wp, cross(wp, r_eff)) + cross(wp, ax * vv) * 2.f;
-      }
-      s.x[i] = xi;
-      s.qq[i] = qi;
-      s.axis[i] = ax;
-      s.w[i] = wi;
-      s.vb[i] = vi;
-      s.alpha[i] = ali;
-      s.a[i] = ai;
-    }
-    team.sync();
-  }
+  fk_team<NQ, S>(team, k, M.max_depth, st.q, st.v, s);
 
   KMANIP_PHASE(1);  // FK
   // inertial loads (rnea_rows), fingertips with their cube contacts, the
   // corners' state, and the COM-Jacobian columns of every (body, ancestor)
   // pair (substep_core's mass matrix)
   V3 cb[RPL];
-#pragma unroll
-  for (int r = 0; r < RPL; ++r) {
-    const int i = lane + r * S;
-    if (i >= NQ) continue;
-    const Q4 qi = s.qq[i];
-    const V3 ai = s.a[i], ali = s.alpha[i], wi = s.w[i];
-    V3 ci = qrot(qi, k.com[r]);
-    V3 a_com = ai + cross(ali, ci) + cross(wi, cross(wi, ci));
-    M3 R = quat_to_mat(qi);
-    cb[r] = ci;
-    s.F[i] = a_com * k.mass[r];
-    s.Nt[i] = iw_mul(R, k.inertia[r], ali) + cross(wi, iw_mul(R, k.inertia[r], wi));
-  }
+  inertial_loads_team<NQ, S>(lane, k, s, cb);
   for (int t = lane; t < T; t += S) {
     const int par = m.tip_parent(t);
     const V3 xp = s.x[par];
@@ -460,30 +603,7 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
   // the RNEA backward pass level by level
   float bias[RPL];
   V3 axr[RPL], xr[RPL];
-  for (int d = M.max_depth; d >= 0; --d) {
-#pragma unroll
-    for (int r = 0; r < RPL; ++r) {
-      const int i = lane + r * S;
-      if (i >= NQ || k.depth[r] != d) continue;
-      const V3 Fo = s.F[i], xi = s.x[i], axi = s.axis[i];
-      V3 Fi = Fo;
-      V3 Ni = s.Nt[i] + cross(cb[r], Fo);
-#pragma unroll
-      for (int ci = 0; ci < NQ - 1; ++ci) {
-        if (ci >= k.n_children[r]) break;
-        const int ch = k.child[r][ci];
-        const V3 Fc = s.F[ch];
-        Fi = Fi + Fc;
-        Ni = Ni + s.Nt[ch] + cross(s.x[ch] - xi, Fc);
-      }
-      s.F[i] = Fi;
-      s.Nt[i] = Ni;
-      bias[r] = k.hinge[r] ? dot(axi, Ni) : dot(axi, Fi);
-      axr[r] = axi;
-      xr[r] = xi;
-    }
-    team.sync();
-  }
+  rnea_backward_team<NQ, S>(team, k, M.max_depth, cb, s, bias, axr, xr);
   // the cube: the contact force and torque summed in contact_rows' order
   // (tips, then corners), then its integration, by the last lane; nothing
   // reads s.cube again in this substep
@@ -531,10 +651,7 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
   }
 
   KMANIP_PHASE(4);  // RNEA backward pass, torques
-  // Cholesky factor, right-looking: lane i holds row i; pivot j's d and
-  // each scaled entry L[k][j] are broadcast. Element (i, k) sees the same
-  // subtractions in the same order as chol_factor's left-looking sums, and
-  // the same scaling by 1 / d.
+  // Cholesky factor (chol_factor_team): lane i holds row i
   float row[RPL][NQ];
 #pragma unroll
   for (int r = 0; r < RPL; ++r) {
@@ -543,30 +660,7 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
     for (int kk = 0; kk < NQ; ++kk) row[r][kk] = (i < NQ && kk <= i) ? s.L[tri(i, kk)] : 0.f;
     Mdiag[r] = i < NQ ? pick<NQ>(row[r], i) : 0.f;
   }
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) {
-    const float sd = team.bcast(row[j / S][j], j % S);
-    const float dj = sqrtf(sd);
-    const float inv_d = 1.f / dj;
-    float l[RPL];
-#pragma unroll
-    for (int r = 0; r < RPL; ++r) {
-      const int i = lane + r * S;
-      l[r] = row[r][j] * inv_d;
-      row[r][j] = i > j ? l[r] : row[r][j];
-    }
-#pragma unroll
-    for (int kk = j + 1; kk < NQ; ++kk) {
-      const float lk = team.bcast(l[kk / S], kk % S);
-#pragma unroll
-      for (int r = 0; r < RPL; ++r)  // entries above the diagonal are never read
-        row[r][kk] = row[r][kk] - l[r] * lk;
-    }
-    if (lane == j % S) {
-      s.Ld[j] = dj;
-      s.Lr[j] = 1.f / dj;
-    }
-  }
+  chol_factor_team<NQ>(team, row, s.Ld, s.Lr);
 #pragma unroll
   for (int r = 0; r < RPL; ++r) {
     const int i = lane + r * S;

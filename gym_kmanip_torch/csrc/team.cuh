@@ -1,12 +1,12 @@
 // What the cooperative kernels (the substep K1, the pick-cost rollout K2,
-// the feedback rollout K3, the Riccati sweep K4 and its floor experiment K8)
-// are written against: a block barrier, a team of lanes that can sync,
-// broadcast and reduce (one warp or one half-warp on the card),
-// and an asynchronous global-to-shared copy. On the card these are
-// __syncthreads, __syncwarp, __shfl_sync and cp.async. Compiled as host C++
-// (the test harness), the copy is a plain load and store, and the harness
-// brings its own barrier and team: one thread with no-op syncs, or several
-// host threads behind a barrier.
+// the feedback rollout K3, the Riccati sweep K4, FK + RNEA K5, the SPD
+// solve K7 and the floor experiment K8) are written against: a block
+// barrier, a team of lanes that can sync, broadcast and reduce (one warp or
+// one half-warp on the card), and asynchronous global-to-shared copies. On
+// the card these are __syncthreads, __syncwarp, __shfl_sync and cp.async.
+// Compiled as host C++ (the test harness), a copy is a plain load and
+// store, and the harness brings its own barrier and team: one thread with
+// no-op syncs, or several host threads behind a barrier.
 #pragma once
 
 #ifdef __CUDACC__
@@ -88,11 +88,19 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
+// dst[0..3] = src[0..3], 16 bytes, without waiting; both 16-byte aligned.
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
 __device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // Waits for this thread's copies; a barrier after it shows every thread's.
 __device__ __forceinline__ void copy_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 #else
 inline void copy_async(float* dst, const float* src) { *dst = *src; }
+inline void copy_async16(float* dst, const float* src) {
+  for (int e = 0; e < 4; ++e) dst[e] = src[e];
+}
 inline void copy_commit() {}
 inline void copy_wait_all() {}
 #endif

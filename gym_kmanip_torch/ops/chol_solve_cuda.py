@@ -25,7 +25,7 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import _check
 
 SOURCES = ("chol_solve.cu",)
-HEADERS = ("staged.cuh", "substep.cuh")
+HEADERS = ("staged_team.cuh", "substep.cuh", "substep_team.cuh", "team.cuh")
 LIBRARY = ("chol_solve", SOURCES, HEADERS)
 MAX_N = 24  # csrc/chol_solve.cu instantiates the kernel for every n in 1..MAX_N
 
@@ -34,7 +34,11 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library(*LIBRARY)
+    return _bind(_build.load_library(*LIBRARY))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point's argument types on a loaded library."""
     lib.kmanip_chol_solve.argtypes = [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
     lib.kmanip_chol_solve.restype = ctypes.c_int
     return lib

@@ -23,7 +23,7 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import SUPPORTED, _check, _model_buffers
 
 SOURCES = ("rnea.cu",)
-HEADERS = ("staged.cuh", "substep.cuh")
+HEADERS = ("staged_team.cuh", "substep.cuh", "substep_team.cuh", "team.cuh")
 LIBRARY = ("rnea", SOURCES, HEADERS)
 
 _P = ctypes.c_void_p
@@ -31,7 +31,11 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library(*LIBRARY)
+    return _bind(_build.load_library(*LIBRARY))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point's argument types on a loaded library."""
     lib.kmanip_rnea.argtypes = [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int,
                                 _P, _P, _P, _P, _P, _P, _P]
     lib.kmanip_rnea.restype = ctypes.c_int

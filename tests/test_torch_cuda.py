@@ -319,6 +319,52 @@ def test_rnea_and_contact_kernels_match_plain_on_cuda(cuda, name):
         contacts_cuda.contact_forces_batched(m, args[0].transpose(1, 2), *args[1:])
 
 
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+@pytest.mark.parametrize("K", [1, 37])
+def test_rnea_kernel_ragged_batch_on_cuda(cuda, name, K):
+    """K5 on batches that do not fill the last block (four rollouts per
+    block at solo width): every row against the plain version at the bands
+    above."""
+    from gym_kmanip_torch.ops import rnea_cuda
+
+    m = get_model(name)
+    (q, v, _, _), _ = _staged_inputs(m, cuda, K=K, seed=K)
+    got = rnea_cuda.rnea_terms_batched(m, q, v)
+    want = rnea_cuda.rnea_terms_batched_reference(m, q, v)
+    torch.cuda.synchronize()
+    for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-4)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n", [6, 10, 20, 24])
+@pytest.mark.parametrize("K", [1, 37, 300])
+def test_spd_solve_kernel_ragged_batch_on_cuda(cuda, n, K):
+    """K7 on batches that do not fill the last block (several items per
+    block), from a 16-byte aligned M and from one that is not (the 4-byte
+    copies): against the plain version and float64 at 1e-4 of the largest
+    entry."""
+    from gym_kmanip_torch.ops import chol_solve_cuda as cs
+
+    rng = np.random.RandomState(K + n)
+    A = rng.randn(K, n, n)
+    M = torch.as_tensor(A @ A.transpose(0, 2, 1) / n + np.eye(n), dtype=torch.float32,
+                        device=cuda)
+    b = torch.as_tensor(rng.randn(K, n), dtype=torch.float32, device=cuda)
+    shifted = torch.empty(K * n * n + 1, device=cuda)[1:].view(K, n, n)
+    shifted.copy_(M)
+    assert shifted.data_ptr() % 16 != 0
+    want = cs.cholesky_solve_batched_reference(M, b)
+    want64 = torch.linalg.solve(M.double(), b.double())
+    scale = float(want64.abs().max())
+    for MM in (M, shifted):
+        x = cs.cholesky_solve_batched(MM, b)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(x.cpu().numpy(), want.cpu().numpy(), atol=1e-4 * scale,
+                                   rtol=0)
+        np.testing.assert_allclose(x.double().cpu().numpy(), want64.cpu().numpy(),
+                                   atol=1e-4 * scale, rtol=0)
+
+
 @pytest.mark.parametrize("n", [1, 6, 10, 20, 24])
 def test_spd_solve_kernel_matches_plain_on_cuda(cuda, n):
     """K7 against its plain version and float64 at 1e-4 of the largest

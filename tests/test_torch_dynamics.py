@@ -424,6 +424,7 @@ _HOST_PRELUDE = r"""
 #include "feedback_warp.cuh"
 #include "riccati.cuh"
 #include "staged.cuh"
+#include "staged_team.cuh"
 #include "sweep_floor.cuh"
 // the cooperative kernels' device code on host threads: a team of S
 // threads behind one barrier (S = 1: no barrier), as one warp on the card
@@ -511,9 +512,10 @@ int with_team(int threads, int nq, int T, int contact, int implicit, F f) {
 
 """
 
-# the harness in three parts: the serial references, K3, K4 and the staged
-# and floor kernels; the team substep K1; the team pick-cost rollout K2 (the
-# last two compiled once per model)
+# the harness in three parts: the serial references, K3, K4, the staged
+# kernels (K7's team solve too) and the floor kernels; the team substep K1
+# and K5's team FK + RNEA; the team pick-cost rollout K2 (the last two
+# compiled once per model)
 _HOST_HARNESS = (r"""extern "C" int host_substep(int nq, int T, const float* mf, const int* mi, double dt,
     int contact, int implicit, int K, const float* qpos, const float* qvel,
     const float* ctrl, const float* cube13, float* qo, float* vo, float* co,
@@ -810,9 +812,40 @@ extern "C" int host_spd_solve(int n, int K, const float* M, const float* b, floa
     if (n == 6) chol_solve_item<6>(k, M, b, x);
     else if (n == 10) chol_solve_item<10>(k, M, b, x);
     else if (n == 20) chol_solve_item<20>(k, M, b, x);
+    else if (n == 24) chol_solve_item<24>(k, M, b, x);
     else return -1;
   }
   return 0;
+}
+
+// K7's team solve (csrc/staged_team.cuh), item by item, on one thread or
+// on the kernel's team width (16 threads for n <= 16, 32 above) behind a
+// barrier
+template <int N, int S>
+void chol_team_host(int K, const float* M, const float* b, float* x) {
+  std::vector<float> L(kmanip::chol_scratch<N>());
+  float slot[S];
+  for (int k = 0; k < K; ++k)
+    run_team<S>([&](int lane, pthread_barrier_t* bar) {
+      kmanip::chol_solve_team<N>(HostTeam<S>{lane, bar, slot}, M + (long)k * N * N,
+                                 b + (long)k * N, L.data(), x + (long)k * N, true);
+    });
+}
+
+extern "C" int host_chol_solve_team(int threads, int n, int K, const float* M, const float* b,
+    float* x) {
+  auto widths = [&](auto nn) {
+    constexpr int N = decltype(nn)::value, S = N <= 16 ? 16 : 32;
+    if (threads == 1) chol_team_host<N, 1>(K, M, b, x);
+    else if (threads == S) chol_team_host<N, S>(K, M, b, x);
+    else return -1;
+    return 0;
+  };
+  if (n == 6) return widths(IC<6>{});
+  if (n == 10) return widths(IC<10>{});
+  if (n == 20) return widths(IC<20>{});
+  if (n == 24) return widths(IC<24>{});
+  return -1;
 }
 
 extern "C" void host_sweep_floor(int variant, int H, int n, int m, const float* AB,
@@ -843,6 +876,32 @@ extern "C" void host_sweep_floor(int variant, int H, int n, int m, const float* 
             team, M[0], w[0], c, k, true, qpos, qvel, ctrl, cube13, qo, vo, co, touch, xp, xq);
     });
   });
+}
+
+// K5's team FK + RNEA (csrc/staged_team.cuh) on 1, 4 or 32 threads (the
+// kernel's warp) behind a barrier, the team running the batch's rows one
+// after another
+extern "C" int host_rnea_team(int threads, int nq, int T, const float* mf, const int* mi, int K,
+    const float* q, const float* v, float* xpos, float* xquat, float* axis, float* bias) {
+  using namespace kmanip;
+  if (nq != HOST_NQ || T != (HOST_NQ == 10 ? 2 : 4)) return -1;
+  auto run = [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    std::vector<TreeModel<HOST_NQ>> M(1);
+    std::vector<TreeWork<HOST_NQ>> w(1);
+    float slot[S];
+    run_team<S>([&](int lane, pthread_barrier_t* bar) {
+      const HostTeam<S> team{lane, bar, slot};
+      tree_model_load(M[0], lane, S, mf, mi, [&] { team.sync(); });
+      for (int k = 0; k < K; ++k)
+        rnea_team_row<HOST_NQ>(team, M[0], w[0], k, true, q, v, xpos, xquat, axis, bias);
+    });
+  };
+  if (threads == 1) run(IC<1>{});
+  else if (threads == 4) run(IC<4>{});
+  else if (threads == 32) run(IC<32>{});
+  else return -1;
+  return 0;
 }
 
 """, r"""extern "C" int host_rollout_pick_team(int threads, int nq, int T, const float* mf,
@@ -924,8 +983,13 @@ def host_kernel(tmp_path_factory):
         f.argtypes = [ctypes.c_int] * 3 + [P] * 2 + [ctypes.c_double] + [ctypes.c_int] * 5 + [
             P] * 5
         f.restype = ctypes.c_int
+        f = getattr(so, f"host_rnea_team_{nq}")
+        f.argtypes = [ctypes.c_int] * 3 + [P] * 2 + [ctypes.c_int] + [P] * 6
+        f.restype = ctypes.c_int
     # (threads, nq, ...) -> the model's build
     so.host_substep_team = lambda threads, nq, *a: getattr(so, f"host_substep_team_{nq}")(
+        threads, nq, *a)
+    so.host_rnea_team = lambda threads, nq, *a: getattr(so, f"host_rnea_team_{nq}")(
         threads, nq, *a)
     so.host_rollout_pick_team = lambda threads, nq, *a: getattr(
         so, f"host_rollout_pick_team_{nq}")(threads, nq, *a)
@@ -950,6 +1014,8 @@ def host_kernel(tmp_path_factory):
     so.host_contacts.restype = ctypes.c_int
     so.host_spd_solve.argtypes = [ctypes.c_int] * 2 + [P] * 3
     so.host_spd_solve.restype = ctypes.c_int
+    so.host_chol_solve_team.argtypes = [ctypes.c_int] * 3 + [P] * 3
+    so.host_chol_solve_team.restype = ctypes.c_int
     so.host_sweep_floor.argtypes = [ctypes.c_int] * 4 + [P] * 9
     so.host_sweep_floor.restype = None
     return so
@@ -1237,6 +1303,56 @@ def test_spd_solve_kernel_source_matches_plain_on_host(host_kernel, n):
     _close(x[:-1], want[:-1], 1e-4 * scale)
     _close(x[:-1], want64, 1e-4 * scale)
     assert np.isnan(x[-1]).all() and np.isnan(want[-1]).all()
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+def test_rnea_team_matches_serial_on_host(host_kernel, name):
+    """K5's team FK + RNEA (csrc/staged_team.cuh) on one thread, on four
+    and on 32 (the kernel's warp) behind a barrier: bit for bit the serial
+    rnea_item, every output, on seeded states."""
+    m = from_numpy_model(jax_get_model(name))
+    K, nq, T = 16, m.nq, len(m.fingertips)
+    q, v, _, _ = substep_cuda.random_inputs(m, K, seed=7)
+    mf, mi = substep_cuda.pack_model(m)
+
+    def run(fn, *threads):
+        out = [np.zeros((K, nq, 3), np.float32), np.zeros((K, nq, 4), np.float32),
+               np.zeros((K, nq, 3), np.float32), np.zeros((K, nq), np.float32)]
+        assert fn(*threads, nq, T, _ptr(mf), _ptr(mi), K, _ptr(q), _ptr(v),
+                  *(_ptr(o) for o in out)) == 0
+        return out
+
+    serial = run(host_kernel.host_rnea)
+    for threads in (1, 4, 32):
+        for name_, got, want in zip(("xpos", "xquat", "axis", "bias"),
+                                    run(host_kernel.host_rnea_team, threads), serial):
+            np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32),
+                                          err_msg=f"{name_}, {threads} thread(s)")
+
+
+@pytest.mark.parametrize("n", [6, 10, 20, 24])
+def test_spd_solve_team_matches_serial_on_host(host_kernel, n):
+    """K7's team solve (csrc/staged_team.cuh) on one thread and at the
+    kernel's team width (16 threads for n <= 16, 32 above) behind a
+    barrier: bit for bit the serial
+    chol_solve_item; all NaN, as it is, for a matrix that is not positive
+    definite."""
+    K = 8
+    rng = np.random.RandomState(n)
+    A = rng.randn(K, n, n)
+    M = (A @ A.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32)
+    M[-1] = np.eye(n, dtype=np.float32)
+    M[-1, 1, 1] = -1.0
+    b = rng.randn(K, n).astype(np.float32)
+    serial = np.zeros((K, n), np.float32)
+    assert host_kernel.host_spd_solve(n, K, _ptr(M), _ptr(b), _ptr(serial)) == 0
+    assert np.isfinite(serial[:-1]).all() and np.isnan(serial[-1]).all()
+    for threads in (1, 16 if n <= 16 else 32):
+        x = np.zeros((K, n), np.float32)
+        assert host_kernel.host_chol_solve_team(threads, n, K, _ptr(M), _ptr(b), _ptr(x)) == 0
+        np.testing.assert_array_equal(x[:-1].view(np.uint32), serial[:-1].view(np.uint32),
+                                      err_msg=f"{threads} thread(s)")
+        assert np.isnan(x[-1]).all()
 
 
 @pytest.mark.parametrize("variant", sweep_floor_cuda.VARIANTS)
