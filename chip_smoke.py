@@ -5,9 +5,10 @@
 Phases (any failure raises, and the script exits non-zero):
   1. build:       compile the eight CUDA libraries from gym_kmanip_torch/csrc,
                   K1 and K2 with the solo-width team shapes they were not
-                  built with, and K5 and K7 with their other items per block
-                  (ALTERNATES), one nvcc each, all at once; ptxas's
-                  registers, stack and spills of every kernel.
+                  built with, K5 and K7 with their other items per block,
+                  and K6 with its other team width (ALTERNATES), one nvcc
+                  each, all at once; ptxas's registers, stack and spills of
+                  every kernel.
   2. K1 substep:  at K=256, random solo-arm states from a seed, in MPC mode
                   (dt=0.02, implicit actuation) and env mode (dt=0.002,
                   explicit): the kernel against its plain PyTorch version
@@ -65,15 +66,17 @@ Phases (any failure raises, and the script exits non-zero):
                   1e-5, J 1e-4, nominal 1e-5), solves/s (5 x 5 solves) beside
                   the K1 and fused routes, and a torch.profiler breakdown of 2 solves
                   (device busy, kernel launches, the largest kernels). Then
-                  K5's and K7's device time per launch (torch.profiler) on
-                  the inputs above, and their alternate builds, each checked
-                  as the kernel is (K5 solo, K7 at n=10 and n=20) and timed
+                  K5's, K6's and K7's device time per launch
+                  (torch.profiler) on the inputs above (K5 and K6 solo and
+                  torso), and their alternate builds, each checked as the
+                  kernel is (K5 and K6 solo, K7 at n=10 and n=20) and timed
                   the same way.
   9. K8 floor:    the Riccati step's floor experiment
                   (gym_kmanip_torch.tools.exp_sweep_floor) at H=100, n=40,
                   m=20: each of its seven variants against its plain version
                   (1e-4 of the largest gain), then ms per sweep of each beside
-                  K4's at the same widths.
+                  K4's at the same widths, as a share of K4's, and K4's less
+                  gersh's (what K4's factor and substitutions cost).
 Only the staged route moves the K5, K6 and K7 counters: every other phase,
 and every plain-version call, leaves them as they were.
 The kernels line, then the card's name and power limit (nvidia-smi), then
@@ -132,9 +135,10 @@ WRAPPERS = {
 }
 STAGED = ("K5", "K6", "K7")  # launched by the staged substep route only
 # The team widths and warps per block that K1 and K2 were not built with at
-# solo width (csrc/substep.cu, csrc/rollout_pick.cu), and the warps per block
+# solo width (csrc/substep.cu, csrc/rollout_pick.cu), the warps per block
 # that K5 (csrc/rnea.cu, solo width) and K7 (csrc/chol_solve.cu) were not
-# built with: built with -D beside the kernels, checked against the plain
+# built with, and the team width that K6 (csrc/contacts.cu) was not built
+# with: built with -D beside the kernels, checked against the plain
 # versions and timed beside them. KMANIP_SOLO_ONLY leaves out the torso
 # kernels, which these flags do not change.
 ALTERNATES = {
@@ -146,6 +150,8 @@ ALTERNATES = {
         "32 lanes, 4 warps per block": ("-DKMANIP_TEAM_WARPS=4", "-DKMANIP_SOLO_ONLY")}),
     "K5": (rnea_cuda, {
         "1 warp per block": ("-DKMANIP_RNEA_WARPS=1", "-DKMANIP_SOLO_ONLY")}),
+    "K6": (contacts_cuda, {
+        "16 lanes, 4 warps per block": ("-DKMANIP_CONTACT_LANES=16",)}),
     "K7": (chol_solve_cuda, {
         "1 warp per block": ("-DKMANIP_CHOL_WARPS=1",),
         "4 warps per block": ("-DKMANIP_CHOL_WARPS=4",)}),
@@ -360,13 +366,23 @@ def time_substep(tag, model, contact, inputs):
     return ms, plain_ms, b
 
 
-def kernel_device_ms(fn, tag, n=20):
-    """Device ms per launch of the kernels whose name holds `tag` over n
-    calls of fn (torch.profiler): without the wrapper's host time, which
-    bounds back-to-back calls of a kernel of a few tens of microseconds."""
-    _, _, by_kernel = device_profile(fn, n)
-    t, launches = map(sum, zip(*(v for key, v in by_kernel.items() if tag in key)))
-    return t / launches
+def kernel_device_ms(fn, tag, n=20, tries=3):
+    """Device ms per launch of the kernel whose name holds `tag`, launched
+    once by each of n calls of fn (torch.profiler): without the wrapper's
+    host time, which bounds back-to-back calls of a kernel of a few tens of
+    microseconds. The mean over the launches the trace holds: the profiler
+    may drop some of a short trace's device records, or all of them
+    (PERF.md §7), and then the trace is taken again, up to `tries` traces
+    in all."""
+    for _ in range(tries):
+        rows = [v for key, v in profile_kernels(fn, n).items() if tag in key]
+        t, launches = map(sum, zip(*rows)) if rows else (0.0, 0.0)
+        if round(launches * n) != n:
+            log("device", f"the profiler's trace of {n} calls held {launches * n:.0f} launches of "
+                          f"{tag}")
+        if launches > 0:
+            return t / launches
+    raise AssertionError(f"the profiler recorded no launch of {tag} in {tries} traces")
 
 
 def phase_substep(model):
@@ -890,6 +906,21 @@ def k5_errors(tag, m, q, v):
     return max(errs)
 
 
+def k6_errors(tag, m, args):
+    """K6 against its plain version: forces 1e-4, flags equal
+    (tests/test_pallas.py:135-141); the largest error."""
+    got = contacts_cuda.contact_forces_batched(m, *args)
+    want = plain(contacts_cuda.contact_forces_batched_reference, m, *args)
+    errs = []
+    for name in ("force_cube", "torque_cube", "tip_forces"):
+        errs.append(max_err(getattr(got, name), getattr(want, name)))
+        check("K6", f"{tag}: {name}", errs[-1], 1e-4)
+    for name in ("touch_tip", "touch_table"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"K6 {tag}: {name} flags differ")
+    return max(errs)
+
+
 def k7_errors(tag, M, b):
     """K7 against its plain version and against float64, at 1e-4 of the
     largest solution entry; the error against the plain version."""
@@ -909,7 +940,7 @@ def phase_staged_kernels(model, cost):
     their times and bounds. The solve starts with the cube between the
     fingertips, and the inputs are those of its third substep: from rest
     the first substep has no contact, the third has fingertip and table
-    contacts. Returns the rows and the K5 and K7 inputs."""
+    contacts. Returns the rows and the K5, K6 and K7 inputs."""
     cfg = MPPIConfig(horizon=H, n_samples=K)
     home = torch.as_tensor(model.home_qpos, dtype=torch.float32, device=DEV)
     tips = engine._tips_from_frames(model, *kin.fk(model, home)[:2])
@@ -933,17 +964,9 @@ def phase_staged_kernels(model, cost):
                   f"({b[1]}): {rnea_flops(m)} operations per rollout")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
 
-    # K6: forces 1e-4, flags equal (tests/test_pallas.py:135-141)
     def k6_check(tag, m, args):
-        got = contacts_cuda.contact_forces_batched(m, *args)
-        want = plain(contacts_cuda.contact_forces_batched_reference, m, *args)
-        errs = []
-        for name in ("force_cube", "torque_cube", "tip_forces"):
-            errs.append(max_err(getattr(got, name), getattr(want, name)))
-            check("K6", f"{tag}: {name}", errs[-1], 1e-4)
-        for name in ("touch_tip", "touch_table"):
-            if not torch.equal(getattr(got, name), getattr(want, name)):
-                raise AssertionError(f"K6 {tag}: {name} flags differ")
+        err = k6_errors(tag, m, args)
+        want = contacts_cuda.contact_forces_batched_reference(m, *args)
         log("K6", f"{tag}: touching tip {float(want.touch_tip.float().mean()):.3f}, table "
                   f"{float(want.touch_table.float().mean()):.3f}")
         k_, T = args[0].shape[0], len(m.fingertips)
@@ -952,7 +975,7 @@ def phase_staged_kernels(model, cost):
         b = bound(k_ * contact_flops(m), k_ * (4 * (6 * T + 13 + 6 + 3 * T) + T + 1))
         log("K6", f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms "
                   f"({b[1]}): {contact_flops(m)} operations per rollout")
-        return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound=b)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
 
     def k7_check(tag, M, b):
         err = k7_errors(tag, M, b)
@@ -982,9 +1005,9 @@ def phase_staged_kernels(model, cost):
     rows["K5"]["torso"] = k5_check(f"torso seeded K={K}", torso, tq, tv)
     xp, xq, ax, _ = kin.rnea_terms(torso, tq, tv)
     tips, tip_vel, _, _ = engine._tip_state(torso, xp, xq, ax, tv)
-    args6 = tuple(a.contiguous() for a in (tips, tip_vel, cube[:, :3], cube[:, 3:7], cube[:, 7:10],
-                                            cube[:, 10:]))
-    rows["K6"]["torso"] = k6_check(f"torso seeded K={K}", torso, args6)
+    targs6 = tuple(a.contiguous() for a in (tips, tip_vel, cube[:, :3], cube[:, 3:7],
+                                             cube[:, 7:10], cube[:, 10:]))
+    rows["K6"]["torso"] = k6_check(f"torso seeded K={K}", torso, targs6)
     rng = np.random.RandomState(0)
     A = rng.randn(K, 20, 20)
     M20 = torch.as_tensor(A @ A.transpose(0, 2, 1) / 20 + np.eye(20), dtype=torch.float32,
@@ -996,18 +1019,23 @@ def phase_staged_kernels(model, cost):
             r = rows[name].get(key) if key else rows[name]
             if r is not None:
                 r["bound_ms"], r["bound_by"] = r["bound"]
-    inputs = {"K5": (model, q, v), "K5 torso": (torso, tq, tv), "K7": (M, b), "K7 n=20": (M20, b20)}
+    inputs = {"K5": (model, q, v), "K5 torso": (torso, tq, tv), "K6": (model, args6),
+              "K6 torso": (torso, targs6), "K7": (M, b), "K7 n=20": (M20, b20)}
     return rows, inputs
 
 
 def phase_staged_device_times(rows, inputs):
-    """Device time per launch (torch.profiler) of K5 and K7 on phase 8's
-    inputs, read after the staged route's rates; then each alternate build
-    of K5 and K7 (ALTERNATES), checked against the plain version as phase 8
-    checks the kernel (K5 on the solo inputs, K7 at n=10 and n=20) and
-    timed the same way."""
+    """Device time per launch (torch.profiler) of K5, K6 and K7 on phase
+    8's inputs, read after the staged route's rates; then each alternate
+    build of K5, K6 and K7 (ALTERNATES), checked against the plain version
+    as phase 8 checks the kernel (K5 and K6 on the solo inputs, K7 at n=10
+    and n=20) and timed the same way."""
     def k5_device(m, q, v):
         return kernel_device_ms(lambda: rnea_cuda.rnea_terms_batched(m, q, v), "rnea_kernel")
+
+    def k6_device(m, args):
+        return kernel_device_ms(lambda: contacts_cuda.contact_forces_batched(m, *args),
+                                "contacts_kernel")
 
     def k7_device(M, b):
         return kernel_device_ms(lambda: chol_solve_cuda.cholesky_solve_batched(M, b),
@@ -1015,15 +1043,25 @@ def phase_staged_device_times(rows, inputs):
 
     rows["K5"]["device_ms"] = k5_device(*inputs["K5"])
     rows["K5"]["torso"]["device_ms"] = k5_device(*inputs["K5 torso"])
+    rows["K6"]["device_ms"] = k6_device(*inputs["K6"])
+    rows["K6"]["torso"]["device_ms"] = k6_device(*inputs["K6 torso"])
     rows["K7"]["device_ms"] = k7_device(*inputs["K7"])
     rows["K7"]["n20"]["device_ms"] = k7_device(*inputs["K7 n=20"])
     log("K5", f"device time per launch (profiler): {1e3 * rows['K5']['device_ms']:.2f} us solo "
               f"K={K} (32 lanes, 4 warps per block), {1e3 * rows['K5']['torso']['device_ms']:.2f} "
               f"us torso (32 lanes, 1 warp per block)")
+    one = torch.zeros(1, device=DEV)
+    floor_ms = kernel_device_ms(lambda: one.fill_(1.0), "FillFunctor")
+    log("device", f"a one-element torch fill: {1e3 * floor_ms:.2f} us per launch on the device "
+                  f"(profiler), the least a launch reads there")
+    log("K6", f"device time per launch (profiler): {1e3 * rows['K6']['device_ms']:.2f} us solo "
+              f"K={K}, {1e3 * rows['K6']['torso']['device_ms']:.2f} us torso (32 lanes, 4 warps "
+              f"per block)")
     log("K7", f"device time per launch (profiler): {1e3 * rows['K7']['device_ms']:.2f} us at "
               f"n=10 (16-lane teams), {1e3 * rows['K7']['n20']['device_ms']:.2f} us at n=20 "
               f"(32-lane teams); 2 warps per block")
     cases = {"K5": (k5_errors, k5_device, ("K5",)),
+             "K6": (k6_errors, k6_device, ("K6",)),
              "K7": (k7_errors, k7_device, ("K7", "K7 n=20"))}
     for kernel, (errors, device, keys) in cases.items():
         rows[kernel]["alternates"] = {}
@@ -1100,9 +1138,9 @@ def phase_staged_mppi(model, cost, k1_rates, fused_rates):
     return launches, profiled
 
 
-def device_profile(fn, n):
-    """torch.profiler over n calls of fn: device-busy ms per call, kernel
-    launches per call, and {kernel name: (device ms, launches) per call}."""
+def profile_kernels(fn, n):
+    """torch.profiler over n calls of fn: {name: (device ms, launches) per
+    call} of every kernel, copy and fill that ran on the device."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1110,11 +1148,17 @@ def device_profile(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
-    kernels = {e.key: (e.self_device_time_total / 1e3 / n, e.count / n) for e in rows
-               if "memcpy" not in e.key.lower() and "memset" not in e.key.lower()}
+    return {e.key: (e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_profile(fn, n):
+    """torch.profiler over n calls of fn: device-busy ms per call, kernel
+    launches per call, and {kernel name: (device ms, launches) per call}."""
+    rows = profile_kernels(fn, n)
+    busy = sum(t for t, _ in rows.values())
+    kernels = {k: v for k, v in rows.items()
+               if "memcpy" not in k.lower() and "memset" not in k.lower()}
     if busy <= 0.0:
         raise AssertionError("the profiler recorded no device time")
     return busy, sum(c for _, c in kernels.values()), kernels
@@ -1178,6 +1222,8 @@ def phase_sweep_floor():
         log("K8", f"{v:13s} {ms:8.4f} ms/sweep ({ms / k4_ms:6.1%} of K4 {k4_ms:.4f} ms), plain "
                   f"{rows[v]['plain_ms']:.2f} ms, bound {rows[v]['bound_ms']:.6f} ms "
                   f"({rows[v]['bound_by']}), max_abs_err {rows[v]['max_abs_err']:.3e}")
+    log("K8", f"K4 - gersh {k4_ms - times['gersh']:.4f} ms/sweep: K4's factor and "
+              f"substitutions (its P3 and P4) at ({h}, {n}, {m})")
     row = dict(rows["gersh"], launches=launches, k4_ms=k4_ms,
                variants={v: r for v, r in rows.items() if v != "gersh"})
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
@@ -1210,8 +1256,8 @@ def main():
     ready = _build.build_libraries([m.LIBRARY for m in mods] + alternates)
     for m in mods:
         m._library()
-    log("build", f"{len(mods)} libraries and {len(alternates)} alternate builds of K1, K2, K5 "
-                 f"and K7 built in parallel and loaded in {time.perf_counter() - t0:.2f} s "
+    log("build", f"{len(mods)} libraries and {len(alternates)} alternate builds of K1, K2, "
+                 f"K5, K6 and K7 built in parallel and loaded in {time.perf_counter() - t0:.2f} s "
                  f"({', '.join(f'{k} {v[0]:.2f} s' for k, v in ready.items())})")
     # ptxas's registers, stack and spills of every kernel, the alternates'
     # too (their solo-width kernels: nq = 10, "ILi10")

@@ -25,7 +25,10 @@
 //       (each element of the lower triangle computes itself and its mirror).
 // While one warp runs P3, the others copy the inputs of step t - 1 (A, B,
 // cxx, cux, cuu, cx, cu) into the other half of a double-buffered shared
-// stage (cp.async): none of them depends on the recursion.
+// stage (cp.async): none of them depends on the recursion. P1, P2, P3's
+// symmetrization and lift, P5 and the stage are device functions
+// (riccati_gw, riccati_q_blocks, riccati_symmetrize, riccati_value_update,
+// riccati_stage) that the floor experiment K8 (sweep_floor.cuh) runs too.
 //
 // Numerics: float32 throughout, every product in full FP32 (no TF32, no
 // bf16 splitting: the JAX package's bf16x3 emulation was a TPU MXU
@@ -264,18 +267,22 @@ __device__ void team_solve_cols(const Team& team, int m, int c0, int nc, const f
   }
 }
 
-// The inputs of step t into stage half `st`, without waiting.
+// The inputs of step t into stage half `st`, without waiting. Row i of A_t
+// is at A + (t n + i) lda, of B_t at B + (t n + i) ldb: A (H, n, n) and B
+// (H, n, m) have lda = n and ldb = m; one (H, n, n + m) array [A B] has
+// B = A + n and lda = ldb = n + m.
 __device__ __forceinline__ void riccati_stage(int tid, int nthr, int t, int n, int m,
                                               const RiccatiLayout& L, float* st,
-                                              const float* A, const float* B, const float* cx,
-                                              const float* cu, const float* cxx,
-                                              const float* cuu, const float* cux) {
+                                              const float* A, int lda, const float* B, int ldb,
+                                              const float* cx, const float* cu,
+                                              const float* cxx, const float* cuu,
+                                              const float* cux) {
   const int Z = n + m;
-  const float* At = A + (long)t * n * n;
-  const float* Bt = B + (long)t * n * m;
+  const float* At = A + (long)t * n * lda;
+  const float* Bt = B + (long)t * n * ldb;
   for (int e = tid; e < n * Z; e += nthr) {
     const int i = e / Z, c = e % Z;
-    copy_async(st + L.sAB + e, c < n ? At + i * n + c : Bt + i * m + c - n);
+    copy_async(st + L.sAB + e, c < n ? At + i * lda + c : Bt + i * ldb + c - n);
   }
   for (int e = tid; e < n * n; e += nthr) copy_async(st + L.sxx + e, cxx + (long)t * n * n + e);
   for (int e = tid; e < m * n; e += nthr) copy_async(st + L.sux + e, cux + (long)t * m * n + e);
@@ -283,6 +290,136 @@ __device__ __forceinline__ void riccati_stage(int tid, int nthr, int t, int n, i
   for (int e = tid; e < n; e += nthr) copy_async(st + L.sx + e, cx + (long)t * n + e);
   for (int e = tid; e < m; e += nthr) copy_async(st + L.su + e, cu + (long)t * m + e);
   copy_commit();
+}
+
+// P1: GW = [A B]^T W in register tiles, from the stage's [A B] (AB); [Qx;
+// Qu] = [cx; cu] + GW[:, 0] into qv, and Qu into C's column 0.
+template <int TR, int TC>
+__device__ __forceinline__ void riccati_gw(int tid, int nthr, int n, int m, const float* AB,
+                                           const float* sx, const float* su, const float* W,
+                                           float* GW, float* qv, float* C) {
+  const int Z = n + m, N1 = n + 1;
+  const int tc = (N1 + TC - 1) / TC, tiles = ((Z + TR - 1) / TR) * tc;
+  for (int e = tid; e < tiles; e += nthr) {
+    tile_mm<TR, TC>((e / tc) * TR, (e % tc) * TC, Z, N1, n, AB, Z, 1, W, N1, 1,
+                    [&](int r, int c, float s) {
+                      GW[r * N1 + c] = s;
+                      if (c == 0) {
+                        const float q = (r < n ? sx[r] : su[r - n]) + s;
+                        qv[r] = q;
+                        if (r >= n) C[(r - n) * N1] = q;
+                      }
+                    });
+  }
+}
+
+// P2: the Q blocks, GW[:, 1:] [A B] plus the costs, in register tiles:
+// Qxx, C's Qux columns, and raw Quu with reg on its diagonal into Qr.
+template <int TR, int TC>
+__device__ __forceinline__ void riccati_q_blocks(int tid, int nthr, int n, int m, float reg,
+                                                 const float* AB, const float* GW,
+                                                 const float* sxx, const float* sux,
+                                                 const float* suu, float* Qxx, float* C,
+                                                 float* Qr) {
+  const int Z = n + m, N1 = n + 1;
+  const int xx_tc = (n + TC - 1) / TC, xx_tiles = ((n + TR - 1) / TR) * xx_tc;
+  const int u_tc = (Z + TC - 1) / TC, u_tiles = ((m + TR - 1) / TR) * u_tc;
+  for (int e = tid; e < xx_tiles + u_tiles; e += nthr) {
+    if (e < xx_tiles) {
+      tile_mm<TR, TC>((e / xx_tc) * TR, (e % xx_tc) * TC, n, n, n, GW + 1, 1, N1, AB, Z, 1,
+                      [&](int r, int c, float s) { Qxx[r * n + c] = sxx[r * n + c] + s; });
+    } else {
+      const int f = e - xx_tiles;
+      tile_mm<TR, TC>((f / u_tc) * TR, (f % u_tc) * TC, m, Z, n, GW + n * N1 + 1, 1, N1, AB, Z,
+                      1, [&](int i, int c, float s) {
+                        if (c < n)
+                          C[i * N1 + 1 + c] = sux[i * n + c] + s;
+                        else
+                          Qr[i * m + c - n] = (suu[i * m + c - n] + s) + (i == c - n ? reg : 0.f);
+                      });
+    }
+  }
+}
+
+// P3's first part, on one team: Qs = (Qr + Qr^T) / 2, each lane its rows;
+// with LIFT also the row maxima of |Qs| and the Gershgorin bounds, reduced
+// over the team, and the returned lift lam = 1e-5 amax + max(0, 1e-4 amax -
+// gersh_min) + lam_extra amax (every lane has it). Without LIFT, returns 0.
+// MM >= m is a compile-time bound.
+template <int MM, bool LIFT, class Team>
+__device__ __forceinline__ float riccati_symmetrize(const Team& team, int m, const float* Qr,
+                                                    float* Qs, float lam_extra) {
+  constexpr int RPL = (MM + Team::SIZE - 1) / Team::SIZE;
+  float amax = 0.f, gmin = 3.402823466e38f;  // identities of max |.| and min
+#pragma unroll
+  for (int r = 0; r < RPL; ++r) {
+    const int i = team.lane + r * Team::SIZE;
+    if (i >= m) continue;
+    float row[MM], col[MM];
+    const float qii = Qr[i * m + i];
+#pragma unroll
+    for (int j = 0; j < MM; ++j) {
+      row[j] = j < m ? Qr[i * m + j] : 0.f;
+      col[j] = j < m ? Qr[j * m + i] : 0.f;
+    }
+    float ra = 0.f, asum = 0.f;
+#pragma unroll
+    for (int j = 0; j < MM; ++j) {
+      if (j >= m) break;
+      const float q = 0.5f * (row[j] + col[j]);
+      Qs[i * m + j] = q;
+      const float a = fabsf(q);
+      ra = fmaxf(ra, a);
+      asum = asum + a;
+    }
+    const float dg = 0.5f * (qii + qii);
+    amax = fmaxf(amax, ra);
+    gmin = fminf(gmin, dg - (asum - fabsf(dg)));
+  }
+  if (!LIFT) return 0.f;
+  amax = team.max(amax);
+  gmin = team.min(gmin);
+  return 1e-5f * amax + fmaxf(0.f, 1e-4f * amax - gmin) + lam_extra * amax;
+}
+
+// P5: the next value state [Vx | Vxx] = [Qx | Qxx] + (Kk^T V + C^T Kk)[1:, :]:
+// each element of Vxx's lower triangle computes itself and its mirror in
+// one pass, and writes their mean to both (SYM) or each to its own place.
+template <bool SYM>
+__device__ __forceinline__ void riccati_value_update(int tid, int nthr, int n, int m,
+                                                     const float* qv, const float* Qxx,
+                                                     const float* C, const float* Kk,
+                                                     const float* V, float* W) {
+  const int N1 = n + 1;
+  const int items = n + n * (n + 1) / 2;
+  for (int e = tid; e < items; e += nthr) {
+    if (e < n) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int i = 0; i < m; ++i) {
+        s1 = fma_rn(Kk[i * N1 + e + 1], V[i * N1], s1);
+        s2 = fma_rn(C[i * N1 + e + 1], Kk[i * N1], s2);
+      }
+      W[e * N1] = qv[e] + (s1 + s2);
+      continue;
+    }
+    const int p = e - n;
+    int rr = (int)((sqrtf(8.f * (float)p + 1.f) - 1.f) * 0.5f);
+    while ((rr + 1) * (rr + 2) / 2 <= p) ++rr;
+    while (rr * (rr + 1) / 2 > p) --rr;
+    const int cc = p - rr * (rr + 1) / 2;  // rr >= cc
+    float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
+    for (int i = 0; i < m; ++i) {
+      const float kr = Kk[i * N1 + rr + 1], kc = Kk[i * N1 + cc + 1];
+      a1 = fma_rn(kr, V[i * N1 + cc + 1], a1);
+      a2 = fma_rn(C[i * N1 + rr + 1], kc, a2);
+      b1 = fma_rn(kc, V[i * N1 + rr + 1], b1);
+      b2 = fma_rn(C[i * N1 + cc + 1], kr, b2);
+    }
+    const float a = Qxx[rr * n + cc] + (a1 + a2);
+    const float b = Qxx[cc * n + rr] + (b1 + b2);
+    W[rr * N1 + cc + 1] = SYM ? 0.5f * (a + b) : a;
+    W[cc * N1 + rr + 1] = SYM ? 0.5f * (a + b) : b;
+  }
 }
 
 // The whole sweep: (A (H,n,n), B (H,n,m), cx (H,n), cu (H,m), cxx (H,n,n),
@@ -306,7 +443,7 @@ __device__ void riccati_sweep_block(int tid, int nthr, const Team& team, Sync sy
                                     const float* cux, const float* VxT, const float* VxxT,
                                     float* ks, float* Ks, float* sm) {
   const int n = NT ? NT : n_rt, m = MT ? MT : m_rt;
-  const int Z = n + m, N1 = n + 1;
+  const int N1 = n + 1;
   const RiccatiLayout L = riccati_layout(n, m);
   float *W = sm + L.W, *GW = sm + L.GW, *qv = sm + L.qv, *Qxx = sm + L.Qxx, *C = sm + L.C;
   float *Qr = sm + L.Qr, *Qs = sm + L.Qs, *S = sm + L.S, *dsc = sm + L.dsc, *inv = sm + L.inv;
@@ -319,12 +456,8 @@ __device__ void riccati_sweep_block(int tid, int nthr, const Team& team, Sync sy
     const int i = e / N1, c = e % N1;
     W[e] = c == 0 ? VxT[i] : VxxT[i * n + c - 1];
   }
-  riccati_stage(tid, nthr, H - 1, n, m, L, sm + L.stage + ((H - 1) & 1) * L.stage_size, A, B,
-                cx, cu, cxx, cuu, cux);
-  const int p1_tc = (N1 + TC - 1) / TC, p1_tiles = ((Z + TR - 1) / TR) * p1_tc;
-  const int xx_tc = (n + TC - 1) / TC, xx_tiles = ((n + TR - 1) / TR) * xx_tc;
-  const int u_tc = (Z + TC - 1) / TC, u_tiles = ((m + TR - 1) / TR) * u_tc;
-  const int p5_items = n + n * (n + 1) / 2;
+  riccati_stage(tid, nthr, H - 1, n, m, L, sm + L.stage + ((H - 1) & 1) * L.stage_size, A, n, B,
+                m, cx, cu, cxx, cuu, cux);
 
   KMANIP_PHASE_START();
   for (int t = H - 1; t >= 0; --t) {
@@ -336,68 +469,16 @@ __device__ void riccati_sweep_block(int tid, int nthr, const Team& team, Sync sy
     const float *sx = st + L.sx, *su = st + L.su;
 
     // P1: GW = [A B]^T W; [Qx; Qu] and C's column 0
-    for (int e = tid; e < p1_tiles; e += nthr) {
-      tile_mm<TR, TC>((e / p1_tc) * TR, (e % p1_tc) * TC, Z, N1, n, AB, Z, 1, W, N1, 1,
-                      [&](int r, int c, float s) {
-                        GW[r * N1 + c] = s;
-                        if (c == 0) {
-                          const float q = (r < n ? sx[r] : su[r - n]) + s;
-                          qv[r] = q;
-                          if (r >= n) C[(r - n) * N1] = q;
-                        }
-                      });
-    }
+    riccati_gw<TR, TC>(tid, nthr, n, m, AB, sx, su, W, GW, qv, C);
     sync();
     KMANIP_PHASE(1);
     // P2: the Q blocks, GW[:, 1:] [A B] plus the costs
-    for (int e = tid; e < xx_tiles + u_tiles; e += nthr) {
-      if (e < xx_tiles) {
-        tile_mm<TR, TC>((e / xx_tc) * TR, (e % xx_tc) * TC, n, n, n, GW + 1, 1, N1, AB, Z, 1,
-                        [&](int r, int c, float s) { Qxx[r * n + c] = sxx[r * n + c] + s; });
-      } else {
-        const int f = e - xx_tiles;
-        tile_mm<TR, TC>((f / u_tc) * TR, (f % u_tc) * TC, m, Z, n, GW + n * N1 + 1, 1, N1, AB,
-                        Z, 1, [&](int i, int c, float s) {
-                          if (c < n)
-                            C[i * N1 + 1 + c] = sux[i * n + c] + s;
-                          else
-                            Qr[i * m + c - n] = (suu[i * m + c - n] + s) + (i == c - n ? reg : 0.f);
-                        });
-      }
-    }
+    riccati_q_blocks<TR, TC>(tid, nthr, n, m, reg, AB, GW, sxx, sux, suu, Qxx, C, Qr);
     sync();
     KMANIP_PHASE(2);
     // P3: one warp symmetrizes Quu, lifts it and factors it
     if (warp == 0) {
-      float amax = 0.f, gmin = 3.402823466e38f;  // identities of max |.| and min
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-        const int i = team.lane + r * Team::SIZE;
-        if (i >= m) continue;
-        float row[MM], col[MM];
-        const float qii = Qr[i * m + i];
-#pragma unroll
-        for (int j = 0; j < MM; ++j) {
-          row[j] = j < m ? Qr[i * m + j] : 0.f;
-          col[j] = j < m ? Qr[j * m + i] : 0.f;
-        }
-        float ra = 0.f, asum = 0.f;
-#pragma unroll
-        for (int j = 0; j < MM; ++j) {
-          if (j >= m) break;
-          const float q = 0.5f * (row[j] + col[j]);
-          Qs[i * m + j] = q;
-          const float a = fabsf(q);
-          ra = fmaxf(ra, a);
-          asum = asum + a;
-        }
-        const float dg = 0.5f * (qii + qii);
-        amax = fmaxf(amax, ra);
-        gmin = fminf(gmin, dg - (asum - fabsf(dg)));
-      }
-      amax = team.max(amax);
-      gmin = team.min(gmin);
-      const float lam = 1e-5f * amax + fmaxf(0.f, 1e-4f * amax - gmin) + lam_extra * amax;
+      const float lam = riccati_symmetrize<MM, true>(team, m, Qr, Qs, lam_extra);
       if (team.lane == 0) lam_s[0] = lam;
       team_factor<MM>(team, m, Qs, lam, S, dsc, inv, keep);
     }
@@ -407,7 +488,8 @@ __device__ void riccati_sweep_block(int tid, int nthr, const Team& team, Sync sy
     if (t > 0 && (n_warps == 1 || warp > 0)) {
       const int skip = n_warps == 1 ? 0 : Team::SIZE;
       riccati_stage(tid - skip, nthr - skip, t - 1, n, m, L,
-                    sm + L.stage + ((t - 1) & 1) * L.stage_size, A, B, cx, cu, cxx, cuu, cux);
+                    sm + L.stage + ((t - 1) & 1) * L.stage_size, A, n, B, m, cx, cu, cxx, cuu,
+                    cux);
     }
     sync();
     KMANIP_PHASE(3);
@@ -456,35 +538,7 @@ __device__ void riccati_sweep_block(int tid, int nthr, const Team& team, Sync sy
     KMANIP_PHASE(4);
     // P5: [Vx | Vxx] = [Qx | Qxx] + (Kk^T V + C^T Kk)[1:, :], Vxx
     // symmetrized: each lower-triangle element with its mirror
-    for (int e = tid; e < p5_items; e += nthr) {
-      if (e < n) {
-        float s1 = 0.f, s2 = 0.f;
-        for (int i = 0; i < m; ++i) {
-          s1 = fma_rn(Kk[i * N1 + e + 1], V[i * N1], s1);
-          s2 = fma_rn(C[i * N1 + e + 1], Kk[i * N1], s2);
-        }
-        W[e * N1] = qv[e] + (s1 + s2);
-        continue;
-      }
-      const int p = e - n;
-      int rr = (int)((sqrtf(8.f * (float)p + 1.f) - 1.f) * 0.5f);
-      while ((rr + 1) * (rr + 2) / 2 <= p) ++rr;
-      while (rr * (rr + 1) / 2 > p) --rr;
-      const int cc = p - rr * (rr + 1) / 2;  // rr >= cc
-      float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
-      for (int i = 0; i < m; ++i) {
-        const float kr = Kk[i * N1 + rr + 1], kc = Kk[i * N1 + cc + 1];
-        a1 = fma_rn(kr, V[i * N1 + cc + 1], a1);
-        a2 = fma_rn(C[i * N1 + rr + 1], kc, a2);
-        b1 = fma_rn(kc, V[i * N1 + rr + 1], b1);
-        b2 = fma_rn(C[i * N1 + cc + 1], kr, b2);
-      }
-      const float a = Qxx[rr * n + cc] + (a1 + a2);
-      const float b = Qxx[cc * n + rr] + (b1 + b2);
-      const float w = 0.5f * (a + b);
-      W[rr * N1 + cc + 1] = w;
-      W[cc * N1 + rr + 1] = w;
-    }
+    riccati_value_update<true>(tid, nthr, n, m, qv, Qxx, C, Kk, V, W);
     KMANIP_PHASE(5);
   }
   KMANIP_PHASE_STOP();

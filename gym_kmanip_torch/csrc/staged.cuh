@@ -1,11 +1,11 @@
 // Per-item device code of the staged substep's three kernels, one item per
-// thread: FK + RNEA (K5), the contact model (K6, which contacts.cu runs so)
-// and the dense SPD solve (K7). Each reads its item's rows of the caller's
-// row-major (K, ...) tensors, runs the device function that the fused
-// substep (substep.cuh) runs for that stage, and writes its item's rows of
-// the outputs. rnea.cu and chol_solve.cu run K5 and K7 on teams of lanes
-// (staged_team.cuh); rnea_item and chol_solve_item are their serial
-// references. Kept in a header so the host test harness compiles the same
+// thread: FK + RNEA (K5), the contact model (K6) and the dense SPD solve
+// (K7). Each reads its item's rows of the caller's row-major (K, ...)
+// tensors, runs the device function that the fused substep (substep.cuh)
+// runs for that stage, and writes its item's rows of the outputs. rnea.cu,
+// contacts.cu and chol_solve.cu run K5, K6 and K7 on teams of lanes
+// (staged_team.cuh); rnea_item, contacts_item and chol_solve_item are their
+// serial references. Kept in a header so the host test harness compiles the same
 // code as C++ and holds it to the plain versions, and the teams to it.
 #pragma once
 

@@ -1,11 +1,12 @@
-// The staged substep's FK + RNEA (K5, rnea.cu) and SPD solve (K7,
-// chol_solve.cu), one team of lanes per item, on the team substep's device
-// functions (substep_team.cuh): K5 runs its FK, inertial loads and backward
-// pass (fk_team, inertial_loads_team, rnea_backward_team), K7 its Cholesky
-// factor (chol_factor_team) and substitutions (solve_lower_regs,
+// The staged substep's FK + RNEA (K5, rnea.cu), contact model (K6,
+// contacts.cu) and SPD solve (K7, chol_solve.cu), one team of lanes per
+// item, on the team substep's device functions (substep_team.cuh): K5 runs
+// its FK, inertial loads and backward pass (fk_team, inertial_loads_team,
+// rnea_backward_team), K6 its contact lanes (contacts_team), K7 its
+// Cholesky factor (chol_factor_team) and substitutions (solve_lower_regs,
 // solve_upper_regs). Each agrees bit for bit with the serial per-item code
-// of staged.cuh (rnea_item, chol_solve_item), held on the host build with
-// one thread and with a team of threads behind a barrier.
+// of staged.cuh (rnea_item, contacts_item, chol_solve_item), held on the
+// host build with one thread and with a team of threads behind a barrier.
 //
 // No tensor cores: K7's products are n <= 24 wide, in FP32, in the fixed
 // order of chol_factor and chol_solve; a TF32 mma would round them
@@ -118,6 +119,102 @@ __device__ void rnea_team_row(const Team& team, const TreeModel<NQ>& M, TreeWork
     axis_out[o * 3 + 2] = axr[r].z;
     bias_out[o] = bias[r];
   }
+}
+
+// ---- K6: the contact model ----
+
+// One team's working set: what contacts_team's lanes pass to each other.
+template <int T>
+struct ContactWork {
+  V3 tip_fc[T], tip_tc[T];  // each tip's force on the cube and its moment
+  V3 tip_f[T];              // the force on each tip
+  bool touch[T];
+  float corner_pen[8];
+  bool corner_table[8];     // each corner on the table, penetrating
+  V3 corner_fc[8], corner_tc[8];  // each corner's force on the cube and its moment
+};
+
+// Floats of a block's stage for `items` items of T tips: per item tip_pos,
+// tip_vel (3 T each), cube_pos (3), cube_quat (4), cube_linvel and
+// cube_angvel (3 each); then the T fingertip radii.
+template <int T>
+KMANIP_HD constexpr int contact_stage_floats(int items) {
+  return items * (6 * T + 13) + T;
+}
+
+// K6's block: contacts_item for items item0 .. item0 + items - 1 of the
+// caller's (K, ...) tensors (fewer at the batch's end), one team per item;
+// thread tid of nthr = items * SIZE, `sync` a barrier over all of them.
+// The block copies its items' rows of each input into `stage` (consecutive
+// threads on consecutive words: the rows are contiguous), and the T
+// fingertip radii `radius` (the packed model's) with them, then team j runs
+// contacts_team on item j; a team past the batch's end runs the block's
+// last item and stores nothing. Tip t's lane writes the item's tip_forces
+// and touch_tip rows, lane SIZE - 1 its force, torque and touch_table.
+template <int T, class Team, class Sync>
+__device__ void contacts_block(int tid, int nthr, const Team& team, const Sync& sync, int items,
+                               long item0, int K, const float* radius, float* stage,
+                               ContactWork<T>* work, const float* __restrict__ tip_pos,
+                               const float* __restrict__ tip_vel,
+                               const float* __restrict__ cube_pos,
+                               const float* __restrict__ cube_quat,
+                               const float* __restrict__ cube_lv,
+                               const float* __restrict__ cube_av, float* __restrict__ force_out,
+                               float* __restrict__ torque_out, float* __restrict__ tip_forces,
+                               bool* __restrict__ touch_tip, bool* __restrict__ touch_table) {
+  constexpr int S = Team::SIZE, TF = 3 * T;
+  KMANIP_PHASE_START();
+  const int n_items = K - item0 < items ? (int)(K - item0) : items;
+  float* s_tp = stage;
+  float* s_tv = s_tp + items * TF;
+  float* s_cp = s_tv + items * TF;
+  float* s_cq = s_cp + items * 3;
+  float* s_cl = s_cq + items * 4;
+  float* s_ca = s_cl + items * 3;
+  float* s_rad = s_ca + items * 3;
+  const auto rows = [&](float* dst, const float* src, int width) {
+    for (int e = tid; e < n_items * width; e += nthr) copy_async(dst + e, src + item0 * width + e);
+  };
+  for (int e = tid; e < T; e += nthr) copy_async(s_rad + e, radius + e);
+  rows(s_tp, tip_pos, TF);
+  rows(s_tv, tip_vel, TF);
+  rows(s_cp, cube_pos, 3);
+  rows(s_cq, cube_quat, 4);
+  rows(s_cl, cube_lv, 3);
+  rows(s_ca, cube_av, 3);
+  copy_commit();
+  copy_wait_all();
+  sync();
+  KMANIP_PHASE(0);  // the stage
+  const int t = tid / S;
+  const int j = t < n_items ? t : n_items - 1;
+  const float *cp = s_cp + 3 * j, *cq = s_cq + 4 * j, *cl = s_cl + 3 * j, *ca = s_ca + 3 * j;
+  const Cube cube{{cp[0], cp[1], cp[2]}, {cq[0], cq[1], cq[2], cq[3]}, {cl[0], cl[1], cl[2]},
+                  {ca[0], ca[1], ca[2]}};
+  ContactWork<T>& w = work[t];
+  V3 force, torque;
+  bool touching;
+  contacts_team<T>(team, cube, s_tp + j * TF, s_tv + j * TF, s_rad, w, force, torque, touching);
+  if (t >= n_items) return;
+  const long k = item0 + j;
+  for (int tip = team.lane; tip < T; tip += S) {
+    float* f = tip_forces + (k * T + tip) * 3;
+    f[0] = w.tip_f[tip].x;
+    f[1] = w.tip_f[tip].y;
+    f[2] = w.tip_f[tip].z;
+    touch_tip[k * T + tip] = w.touch[tip];
+  }
+  if (team.lane == S - 1) {
+    force_out[k * 3] = force.x;
+    force_out[k * 3 + 1] = force.y;
+    force_out[k * 3 + 2] = force.z;
+    torque_out[k * 3] = torque.x;
+    torque_out[k * 3 + 1] = torque.y;
+    torque_out[k * 3 + 2] = torque.z;
+    touch_table[k] = touching;
+  }
+  KMANIP_PHASE(3);  // the sums (lane SIZE - 1) and the outputs
+  KMANIP_PHASE_STOP();
 }
 
 // ---- K7: the SPD solve ----

@@ -4,9 +4,10 @@
 // and the cube's free body, each a compile-time choice. K1 (one substep per
 // rollout, substep.cu), K2 (the pick-cost rollout, rollout_pick.cu) and K3
 // (the feedback rollout, rollout_feedback.cu) all run this one copy, and
-// the staged route's FK + RNEA (K5) and SPD solve (K7, staged_team.cuh)
-// run its FK, inertial loads, backward pass and factor (fk_team,
-// inertial_loads_team, rnea_backward_team, chol_factor_team).
+// the staged route's FK + RNEA (K5), contact model (K6) and SPD solve (K7,
+// staged_team.cuh) run its FK, inertial loads, backward pass, contact lanes
+// and factor (fk_team, inertial_loads_team, rnea_backward_team,
+// contacts_team, chol_factor_team).
 // Written against a team (team.cuh: a lane index, a lane count, a sync and
 // a broadcast), so the host test harness runs it with one thread or with
 // several host threads behind a barrier.
@@ -491,6 +492,128 @@ struct Corners {
   }
 };
 
+// ---- the contact model on a team (contact_rows' arithmetic) ----
+// Each fingertip on a lane of its own (tip t on lane t % SIZE), each cube
+// corner on a lane of its own (Corners), a sync, each corner's a0 and force
+// on its lane, a sync, then one lane sums the tips' and the corners' forces
+// in contact_rows' order. contacts_team runs the whole of it; the team
+// substep runs the same pieces (tip_contact on its tip lanes,
+// corner_lanes, corner_forces_team, contact_sums) where its other work
+// overlaps them. The values that lanes pass to each other live in the
+// caller's working set w: tip_fc, tip_tc, tip_f, touch (T each), and
+// corner_pen, corner_fc, corner_tc (8 each).
+
+// What a lane keeps of its corners between the two halves: corner
+// Corners<S>::of(lane, r) in slot r.
+template <int S>
+struct CornerLanes {
+  static constexpr int R = Corners<S>::PER_LANE;
+  V3 arm[R], vc[R];
+  float pen[R];
+  bool over[R];
+};
+
+// Each of the lane's corners against the table (corner_state); its
+// penetration into w.corner_pen for the other corners' count.
+template <int S, class Work>
+__device__ __forceinline__ void corner_lanes(int lane, const M3& R, const Cube& cube,
+                                             CornerLanes<S>& cl, Work& w) {
+#pragma unroll
+  for (int r = 0; r < Corners<S>::PER_LANE; ++r) {
+    const int c = Corners<S>::of(lane, r);
+    if (c < 0) continue;
+    corner_state(R, cube, c, cl.arm[r], cl.pen[r], cl.vc[r], cl.over[r]);
+    w.corner_pen[c] = cl.pen[r];
+  }
+}
+
+// After a sync that shows every tip's and corner's values: each of the
+// lane's corners sums the tips' force and torque in tip order (the one
+// Gauss-Seidel pass), then its a0 and its force into w.corner_fc,
+// w.corner_tc. av is the cube's angular velocity.
+template <int T, int S, class Work>
+__device__ __forceinline__ void corner_forces_team(int lane, V3 av, const CornerLanes<S>& cl,
+                                                   Work& w) {
+  const V3 zero{0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < Corners<S>::PER_LANE; ++r) {
+    const int c = Corners<S>::of(lane, r);
+    if (c < 0) continue;
+    V3 force = zero, torque = zero;
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      force = force + w.tip_fc[t];
+      torque = torque + w.tip_tc[t];
+    }
+    V3 acc_com, alpha;
+    cube_acc(force, torque, acc_com, alpha);
+    float n_act = 0.f;
+#pragma unroll
+    for (int c2 = 0; c2 < 8; ++c2) n_act += w.corner_pen[c2] > 0.f ? 1.f : 0.f;
+    const float m_eff = (float)CUBE_MASS / fmaxf(n_act, 1.f);
+    const float a0 = corner_a0(acc_com, alpha, av, cl.arm[r]);
+    corner_force(cl.pen[r], cl.vc[r], a0, m_eff, cl.arm[r], w.corner_fc[c], w.corner_tc[c]);
+  }
+}
+
+// After a sync that shows every corner's force: the force and torque on
+// the cube, the tips' then the corners', in contact_rows' order.
+template <int T, class Work>
+__device__ __forceinline__ void contact_sums(const Work& w, V3& force, V3& torque) {
+  force = V3{0.f, 0.f, 0.f};
+  torque = V3{0.f, 0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    force = force + w.tip_fc[t];
+    torque = torque + w.tip_tc[t];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    force = force + w.corner_fc[c];
+    torque = torque + w.corner_tc[c];
+  }
+}
+
+// contact_rows on a team: tip t's position, velocity and radius at
+// tip_p[3t], tip_v[3t], radius[t]. w also has corner_table (8): each
+// corner on the table, penetrating. Leaves every tip's force and flag in
+// w.tip_f, w.touch (each written by the tip's own lane), and on lane
+// SIZE - 1 only the cube's force and torque and whether a corner touches
+// the table.
+template <int T, class Team, class Work>
+__device__ __forceinline__ void contacts_team(const Team& team, const Cube& cube,
+                                              const float* tip_p, const float* tip_v,
+                                              const float* radius, Work& w, V3& force,
+                                              V3& torque, bool& touching) {
+  constexpr int S = Team::SIZE;
+  const int lane = team.lane;
+  const M3 R = quat_to_mat(cube.quat);
+  force = torque = V3{0.f, 0.f, 0.f};
+  touching = false;
+  for (int t = lane; t < T; t += S) {
+    const V3 p{tip_p[3 * t], tip_p[3 * t + 1], tip_p[3 * t + 2]};
+    const V3 v{tip_v[3 * t], tip_v[3 * t + 1], tip_v[3 * t + 2]};
+    tip_contact(R, cube, p, v, radius[t], w.tip_fc[t], w.tip_tc[t], w.tip_f[t], w.touch[t]);
+  }
+  CornerLanes<S> cl;
+  corner_lanes<S>(lane, R, cube, cl, w);
+#pragma unroll
+  for (int r = 0; r < Corners<S>::PER_LANE; ++r) {
+    const int c = Corners<S>::of(lane, r);
+    if (c >= 0) w.corner_table[c] = cl.pen[r] > 0.f && cl.over[r];
+  }
+  team.sync();
+  KMANIP_PHASE(1);  // the tips and the corners' states
+  corner_forces_team<T, S>(lane, cube.av, cl, w);
+  team.sync();
+  KMANIP_PHASE(2);  // the corners' forces
+  if (lane == S - 1) {
+    contact_sums<T>(w, force, torque);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) touching = touching | w.corner_table[c];
+  }
+}
+
 // One substep of the team's rollout, substep_core(m, c, CONTACT, IMPLICIT,
 // ...) on the lanes' state st and the cube in s.cube. CUBE = false skips
 // the cube's integration (the feedback rollout pins the cube, and a
@@ -505,7 +628,6 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
   constexpr int S = Team::SIZE;
   constexpr int RPL = LaneConsts<NQ, T, S>::RPL, RPE = LaneConsts<NQ, T, S>::RPE;
   constexpr int NTRI = TeamWork<NQ, T>::NTRI;
-  using CN = Corners<S>;
   const int lane = team.lane;
   const V3 zero{0.f, 0.f, 0.f};
   fk_team<NQ, S>(team, k, M.max_depth, st.q, st.v, s);
@@ -530,18 +652,10 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
       s.touch[t] = false;  // rollout, CUBE = false, never reads the flags)
     }
   }
-  V3 c_arm[CN::PER_LANE], c_vc[CN::PER_LANE];
-  float c_pen[CN::PER_LANE];
+  CornerLanes<S> cl;
   if (CONTACT) {
-#pragma unroll
-    for (int r = 0; r < CN::PER_LANE; ++r) {
-      const int cc = CN::of(lane, r);
-      if (cc < 0) continue;
-      const Cube cube = s.cube;
-      bool over;
-      corner_state(quat_to_mat(cube.quat), cube, cc, c_arm[r], c_pen[r], c_vc[r], over);
-      s.corner_pen[cc] = c_pen[r];
-    }
+    const Cube cube = s.cube;
+    corner_lanes<S>(lane, quat_to_mat(cube.quat), cube, cl, s);
   }
   for (int p = lane; p < M.n_pairs; p += S) {
     const int i = M.pair_body[p], j = M.pair_joint[p];
@@ -558,27 +672,7 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
   KMANIP_PHASE(2);  // inertial loads, fingertips, Jacobian columns
   // the corners' forces on the cube: the tips' force first (contact_rows'
   // sums, in tip order), then each corner's a0 and force
-  if (CONTACT) {
-#pragma unroll
-    for (int r = 0; r < CN::PER_LANE; ++r) {
-      const int cc = CN::of(lane, r);
-      if (cc < 0) continue;
-      V3 force = zero, torque = zero;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        force = force + s.tip_fc[t];
-        torque = torque + s.tip_tc[t];
-      }
-      V3 acc_com, alpha;
-      cube_acc(force, torque, acc_com, alpha);
-      float n_act = 0.f;
-#pragma unroll
-      for (int c2 = 0; c2 < 8; ++c2) n_act += s.corner_pen[c2] > 0.f ? 1.f : 0.f;
-      const float m_eff = (float)CUBE_MASS / fmaxf(n_act, 1.f);
-      const float a0 = corner_a0(acc_com, alpha, s.cube.av, c_arm[r]);
-      corner_force(c_pen[r], c_vc[r], a0, m_eff, c_arm[r], s.corner_fc[cc], s.corner_tc[cc]);
-    }
-  }
+  if (CONTACT) corner_forces_team<T, S>(lane, s.cube.av, cl, s);
   KMANIP_PHASE(8);  // the corners' forces
   // the packed mass matrix, one entry per lane, bodies in order
 #pragma unroll
@@ -609,18 +703,7 @@ __device__ void substep_team(const Team& team, const ModelView<NQ, T>& m, const 
   // reads s.cube again in this substep
   if (CUBE && lane == S - 1) {
     V3 force = zero, torque = zero;
-    if (CONTACT) {
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        force = force + s.tip_fc[t];
-        torque = torque + s.tip_tc[t];
-      }
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) {
-        force = force + s.corner_fc[cc];
-        torque = torque + s.corner_tc[cc];
-      }
-    }
+    if (CONTACT) contact_sums<T>(s, force, torque);
     Cube cube = s.cube;
     integrate_cube(c, force, torque, cube);
     s.cube = cube;

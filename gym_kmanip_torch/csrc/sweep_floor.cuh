@@ -1,13 +1,22 @@
 // Device code of the Riccati step's floor experiment: the backward sweep
 // cut down to seven cumulative variants, to bisect what one step of the
 // sweep costs on the card. Follows the JAX package's Pallas experiment
-// tools/exp_sweep_floor.py::_kernel variant for variant, on the block
-// primitives of the Riccati sweep kernel as it was first ported (one block,
-// the value state W = [Vx | Vxx] in shared memory, block_mm_tn and
-// element-per-thread loops with a barrier after each), so the floors it
-// reports are that design's floors.
-// Written against a thread index, a thread count and a barrier, so the
-// host test harness runs it as C++ with one thread and a no-op barrier.
+// tools/exp_sweep_floor.py::_kernel variant for variant, and floors the
+// Riccati sweep kernel K4 as it now stands (riccati.cuh): each variant is
+// K4's step with parts cut away, on K4's own pieces. One block, K4's shared
+// working set (riccati_layout) and thread count; from `mem` on, step t - 1's
+// inputs are copied into the other half of K4's double-buffered stage
+// (riccati_stage) while step t computes; the products are K4's register
+// tiles (riccati_gw, riccati_q_blocks, tile_mm); Quu is symmetrized, and
+// lifted, by one warp with K4's reductions (riccati_symmetrize); the value
+// update is K4's, each Vxx element computed with its mirror
+// (riccati_value_update). What the variants leave out of K4 is its P3
+// factor and its P4 substitutions: the experiment's gains are Jacobi
+// gains, elementwise. So K4's time less gersh's is what the factor and the
+// substitutions cost a sweep.
+// Written against a thread index, a thread count, a block barrier and a
+// team of lanes (team.cuh), so the host test harness runs it as C++ on one
+// thread or on several behind a barrier.
 //
 // Per step t = H-1 .. 0, on AB (H, n, n+m), cx (H, n), cu (H, m),
 // cxx (H, n, n), cuu (H, m, m), cux (H, m, n), W from WT (n, 1+n):
@@ -16,32 +25,24 @@
 //   load1nostore  W += 1e-9 cxx[t,0,0]; only row 0 of the outputs, every
 //                 step: ks[0] = 1e-9 W[0, :m], Ks[0] = 1e-9 W[:m, 1:]
 //                 (the other rows are zero)
+//                 (these three: the step loop and its barrier)
 //   mem           W += 1e-9 (cx + cu + cxx + cuu + cux + AB)[t, 0..];
 //                 ks[t] = cu[t] + W[:m, 0], Ks[t] = cux[t] + W[:m, 1:]
+//                 (K4's staged loads and the stores)
 //   gemm          GW = AB^T W, GWG = GW[:, 1:] AB, the Q blocks;
 //                 Kk = -[Qu | Qux] / (diag Quu + lam), lam = 1e-6;
-//                 W = [Qx | Qxx] + (Kk^T (Quu Kk + lam Kk + C) + C^T Kk)[1:]
-//   trans         gemm with Quu and the new Vxx symmetrized
+//                 V = Quu Kk + lam Kk + C, C = [Qu | Qux];
+//                 W = [Qx | Qxx] + (Kk^T V + C^T Kk)[1:]
+//                 (K4's products and value update in register tiles, the
+//                 gains elementwise)
+//   trans         gemm with Quu and the new Vxx symmetrized, as K4 does
 //   gersh         trans with lam = 1e-5 amax + max(0, 1e-4 amax - gersh_min)
-// (the Jacobi gains of the experiment, not K4's Cholesky solve).
+//                 (K4's lift from warp reductions)
 #pragma once
 
-#include "team.cuh"
+#include "riccati.cuh"
 
 namespace kmanip {
-
-// out[r * ldo + c] = sum_i A[i * lda + r] * B[i * ldb + c] for r < R, c < C,
-// i < I (A^T B), in block-shared memory: one output element per thread at a
-// time, its dot product summed in order. The caller places the barrier.
-__device__ inline void block_mm_tn(int tid, int nthr, int R, int C, int I, const float* A,
-                                   int lda, const float* B, int ldb, float* out, int ldo) {
-  for (int e = tid; e < R * C; e += nthr) {
-    const int r = e / C, c = e % C;
-    float s = 0.f;
-    for (int i = 0; i < I; ++i) s = s + A[i * lda + r] * B[i * ldb + c];
-    out[r * ldo + c] = s;
-  }
-}
 
 enum FloorVariant {
   FLOOR_LOOP = 0,
@@ -54,157 +55,114 @@ enum FloorVariant {
   FLOOR_N_VARIANTS
 };
 
-// Offsets, in floats, of the experiment's shared working set (Z = n + m,
-// N1 = n + 1).
-struct FloorLayout {
-  int W, AB, GW, Q, qv, Qs, C, Kk, V, red, total;
-};
-
-KMANIP_HD inline FloorLayout floor_layout(int n, int m) {
-  const int Z = n + m, N1 = n + 1;
-  FloorLayout L;
-  int o = 0;
-  L.W = o;   o += n * N1;  // value state [Vx | Vxx]
-  L.AB = o;  o += n * Z;   // AB_t
-  L.GW = o;  o += Z * N1;  // AB^T W; reused for the next value state
-  L.Q = o;   o += Z * Z;   // [[Qxx, -], [Qux, Quu]]
-  L.qv = o;  o += Z;       // [Qx; Qu]
-  L.Qs = o;  o += m * m;   // Quu, symmetrized in trans and gersh
-  L.C = o;   o += m * N1;  // [Qu | Qux]
-  L.Kk = o;  o += m * N1;  // gains [k | K]
-  L.V = o;   o += m * N1;  // Quu Kk + lam Kk + C
-  L.red = o; o += 2 * m;   // per-row max |Quu| and Gershgorin bound
-  L.total = o;
-  return L;
-}
-
-template <class Sync>
-__device__ void sweep_floor_block(int tid, int nthr, Sync sync, int variant, int H, int n, int m,
-                                  const float* ABg, const float* cx, const float* cu,
+// One sweep of variant VAR. NT, MT: the widths, or 0 for runtime widths
+// n_rt, m_rt (m <= n, m <= 32); TR x TC: the register tile of the products.
+// The team is the warp of thread tid, and nthr a multiple of its SIZE, as in
+// riccati_sweep_block. `sm` holds riccati_layout(n, m).total floats.
+template <int VAR, int NT, int MT, int TR, int TC, class Team, class Sync>
+__device__ void sweep_floor_block(int tid, int nthr, const Team& team, Sync sync, int H, int n_rt,
+                                  int m_rt, const float* ABg, const float* cx, const float* cu,
                                   const float* cxx, const float* cuu, const float* cux,
                                   const float* WT, float* ks, float* Ks, float* sm) {
-  const FloorLayout L = floor_layout(n, m);
+  const int n = NT ? NT : n_rt, m = MT ? MT : m_rt;
   const int Z = n + m, N1 = n + 1;
-  float *W = sm + L.W, *AB = sm + L.AB, *GW = sm + L.GW, *Q = sm + L.Q, *qv = sm + L.qv;
-  float *Qs = sm + L.Qs, *C = sm + L.C, *Kk = sm + L.Kk, *V = sm + L.V, *red = sm + L.red;
+  const RiccatiLayout L = riccati_layout(n, m);
+  float *W = sm + L.W, *GW = sm + L.GW, *qv = sm + L.qv, *Qxx = sm + L.Qxx, *C = sm + L.C;
+  float *Qr = sm + L.Qr, *Qs = sm + L.Qs, *Kk = sm + L.Kk, *V = sm + L.V, *lam_s = sm + L.lam;
+  const int warp = tid / Team::SIZE, n_warps = nthr / Team::SIZE;
+  constexpr int MM = MT ? MT : RICCATI_MAX_M;  // compile-time bound on m
+  constexpr bool STAGED = VAR >= FLOOR_MEM;
+  constexpr bool SYM = VAR >= FLOOR_TRANS;
+  const auto stage = [&](int t, int skip) {  // step t's inputs into their stage half
+    riccati_stage(tid - skip, nthr - skip, t, n, m, L, sm + L.stage + (t & 1) * L.stage_size, ABg,
+                  Z, ABg + n, Z, cx, cu, cxx, cuu, cux);
+  };
 
   for (int e = tid; e < n * N1; e += nthr) W[e] = WT[e];
-  if (variant == FLOOR_LOAD1NOSTORE) {  // only row 0 is ever written
+  if (VAR == FLOOR_LOAD1NOSTORE) {  // only row 0 is ever written
     for (int e = m + tid; e < H * m; e += nthr) ks[e] = 0.f;
     for (int e = m * n + tid; e < H * m * n; e += nthr) Ks[e] = 0.f;
   }
-  sync();
+  if (STAGED) stage(H - 1, 0);
   for (int t = H - 1; t >= 0; --t) {
-    if (variant <= FLOOR_MEM) {
-      float inc;
-      if (variant == FLOOR_LOOP) {
-        inc = 1e-9f * (float)t;
-      } else if (variant == FLOOR_MEM) {
-        inc = (((((cx[(long)t * n] + cu[(long)t * m]) + cxx[(long)t * n * n]) +
-                 cuu[(long)t * m * m]) + cux[(long)t * m * n]) + ABg[(long)t * n * Z]) * 1e-9f;
-      } else {
-        inc = cxx[(long)t * n * n] * 1e-9f;
-      }
+    if (STAGED) copy_wait_all();
+    sync();
+    if (!STAGED) {
+      const float inc = VAR == FLOOR_LOOP ? 1e-9f * (float)t : cxx[(long)t * n * n] * 1e-9f;
       for (int e = tid; e < n * N1; e += nthr) {
         const int i = e / N1, c = e % N1;
         const float w = W[e];
-        if (variant == FLOOR_LOAD1NOSTORE) {
+        if (VAR == FLOOR_LOAD1NOSTORE) {
           if (i == 0 && c < m) ks[c] = w * 1e-9f;
           if (i < m && c >= 1) Ks[i * n + c - 1] = w * 1e-9f;
         } else if (i < m) {
-          const bool mem = variant == FLOOR_MEM;
           if (c == 0)
-            ks[(long)t * m + i] = mem ? cu[(long)t * m + i] + w : w;
+            ks[(long)t * m + i] = w;
           else
-            Ks[((long)t * m + i) * n + c - 1] = mem ? cux[((long)t * m + i) * n + c - 1] + w : w;
+            Ks[((long)t * m + i) * n + c - 1] = w;
         }
         W[e] = w + inc;
       }
-      sync();
+      continue;
+    }
+    const float* st = sm + L.stage + (t & 1) * L.stage_size;
+    const float *AB = st + L.sAB, *sxx = st + L.sxx, *sux = st + L.sux, *suu = st + L.suu;
+    const float *sx = st + L.sx, *su = st + L.su;
+    if (VAR == FLOOR_MEM) {
+      if (t > 0) stage(t - 1, 0);  // nothing else reads the other half now
+      const float inc = (((((sx[0] + su[0]) + sxx[0]) + suu[0]) + sux[0]) + AB[0]) * 1e-9f;
+      for (int e = tid; e < n * N1; e += nthr) {
+        const int i = e / N1, c = e % N1;
+        const float w = W[e];
+        if (i < m) {
+          if (c == 0)
+            ks[(long)t * m + i] = su[i] + w;
+          else
+            Ks[((long)t * m + i) * n + c - 1] = sux[i * n + c - 1] + w;
+        }
+        W[e] = w + inc;
+      }
       continue;
     }
 
-    const float* ABt = ABg + (long)t * n * Z;
-    for (int e = tid; e < n * Z; e += nthr) AB[e] = ABt[e];
+    // K4's P1 and P2: GW, [Qx; Qu], and the Q blocks (no reg)
+    riccati_gw<TR, TC>(tid, nthr, n, m, AB, sx, su, W, GW, qv, C);
     sync();
-    block_mm_tn(tid, nthr, Z, N1, n, AB, Z, W, N1, GW, N1);  // GW = AB^T W
+    riccati_q_blocks<TR, TC>(tid, nthr, n, m, 0.f, AB, GW, sxx, sux, suu, Qxx, C, Qr);
     sync();
-    for (int e = tid; e < Z * Z; e += nthr) {  // the Q blocks
-      const int rr = e / Z, c = e % Z;
-      if (rr < n && c >= n) continue;  // Qxu is never read
-      float s = 0.f;
-      for (int i = 0; i < n; ++i) s = s + GW[rr * N1 + 1 + i] * AB[i * Z + c];
-      if (rr < n)
-        Q[e] = cxx[((long)t * n + rr) * n + c] + s;
-      else if (c < n)
-        Q[e] = cux[((long)t * m + rr - n) * n + c] + s;
-      else
-        Q[e] = cuu[((long)t * m + rr - n) * m + c - n] + s;
+    // K4's P3 without the factor: one warp symmetrizes Quu (and lifts it)
+    // while the other warps copy step t - 1's inputs (the only warp copies
+    // after it)
+    if (SYM && warp == 0) {
+      const float lam = riccati_symmetrize<MM, VAR == FLOOR_GERSH>(team, m, Qr, Qs, 0.f);
+      if (team.lane == 0) lam_s[0] = lam;
     }
-    for (int rr = tid; rr < Z; rr += nthr)
-      qv[rr] = (rr < n ? cx[(long)t * n + rr] : cu[(long)t * m + rr - n]) + GW[rr * N1];
+    if (t > 0 && (n_warps == 1 || warp > 0)) stage(t - 1, n_warps == 1 ? 0 : Team::SIZE);
     sync();
-    const bool sym = variant >= FLOOR_TRANS;
-    for (int e = tid; e < m * m; e += nthr) {
-      const int i = e / m, j = e % m;
-      const float q = Q[(n + i) * Z + n + j];
-      Qs[e] = sym ? 0.5f * (q + Q[(n + j) * Z + n + i]) : q;
-    }
+    // the Jacobi gains, elementwise, and their stores
+    const float* Q = SYM ? Qs : Qr;
+    const float lam = VAR == FLOOR_GERSH ? lam_s[0] : 1e-6f;
     for (int e = tid; e < m * N1; e += nthr) {
       const int i = e / N1, c = e % N1;
-      C[e] = c == 0 ? qv[n + i] : Q[(n + i) * Z + c - 1];
-    }
-    sync();
-    float lam = 1e-6f;
-    if (variant == FLOOR_GERSH) {
-      for (int i = tid; i < m; i += nthr) {  // per-row max |Quu| and Gershgorin bound
-        float amax = 0.f, asum = 0.f;
-        for (int j = 0; j < m; ++j) {
-          const float a = fabsf(Qs[i * m + j]);
-          amax = fmaxf(amax, a);
-          asum = asum + a;
-        }
-        const float dg = Qs[i * m + i];
-        red[i] = amax;
-        red[m + i] = dg - (asum - fabsf(dg));
-      }
-      sync();
-      float amax = red[0], gmin = red[m];
-      for (int i = 1; i < m; ++i) {
-        amax = fmaxf(amax, red[i]);
-        gmin = fminf(gmin, red[m + i]);
-      }
-      lam = 1e-5f * amax + fmaxf(0.f, 1e-4f * amax - gmin);
-    }
-    for (int e = tid; e < m * N1; e += nthr) {  // Jacobi gains
-      const int i = e / N1;
-      Kk[e] = -(C[e] / (Qs[i * m + i] + lam));
-    }
-    sync();
-    for (int e = tid; e < m * N1; e += nthr) {  // V = Quu Kk + lam Kk + C; write gains
-      const int i = e / N1, c = e % N1;
-      float s = 0.f;
-      for (int k = 0; k < m; ++k) s = s + Qs[i * m + k] * Kk[k * N1 + c];
-      V[e] = (s + lam * Kk[e]) + C[e];
+      const float k = -(C[e] / (Q[i * m + i] + lam));
+      Kk[e] = k;
       if (c == 0)
-        ks[(long)t * m + i] = Kk[e];
+        ks[(long)t * m + i] = k;
       else
-        Ks[((long)t * m + i) * n + c - 1] = Kk[e];
+        Ks[((long)t * m + i) * n + c - 1] = k;
     }
     sync();
-    for (int e = tid; e < n * N1; e += nthr) {  // [Qx | Qxx] + (Kk^T V + C^T Kk)[1:, :]
-      const int rr = e / N1, c = e % N1;
-      float s1 = 0.f, s2 = 0.f;
-      for (int i = 0; i < m; ++i) s1 = s1 + Kk[i * N1 + rr + 1] * V[i * N1 + c];
-      for (int i = 0; i < m; ++i) s2 = s2 + C[i * N1 + rr + 1] * Kk[i * N1 + c];
-      GW[e] = (c == 0 ? qv[rr] : Q[rr * Z + c - 1]) + (s1 + s2);
+    // V = Quu Kk + lam Kk + C in register tiles
+    const int v_tc = (N1 + TC - 1) / TC, v_tiles = ((m + TR - 1) / TR) * v_tc;
+    for (int e = tid; e < v_tiles; e += nthr) {
+      tile_mm<TR, TC>((e / v_tc) * TR, (e % v_tc) * TC, m, N1, m, Q, 1, m, Kk, N1, 1,
+                      [&](int i, int c, float s) {
+                        V[i * N1 + c] = (s + lam * Kk[i * N1 + c]) + C[i * N1 + c];
+                      });
     }
     sync();
-    for (int e = tid; e < n * N1; e += nthr) {  // Vxx symmetrized in trans and gersh
-      const int rr = e / N1, c = e % N1;
-      W[e] = sym && c > 0 ? 0.5f * (GW[e] + GW[(c - 1) * N1 + rr + 1]) : GW[e];
-    }
-    sync();
+    // K4's P5: the next value state, Vxx symmetrized from trans on
+    riccati_value_update<SYM>(tid, nthr, n, m, qv, Qxx, C, Kk, V, W);
   }
 }
 

@@ -25,7 +25,7 @@ from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import SUPPORTED, _check, _model_buffers
 
 SOURCES = ("contacts.cu",)
-HEADERS = ("staged.cuh", "substep.cuh")
+HEADERS = ("staged_team.cuh", "substep.cuh", "substep_team.cuh", "team.cuh")
 LIBRARY = ("contacts", SOURCES, HEADERS)
 
 _P = ctypes.c_void_p
@@ -33,8 +33,12 @@ _P = ctypes.c_void_p
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library(*LIBRARY)
-    lib.kmanip_contacts.argtypes = [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int] + [_P] * 12
+    return _bind(_build.load_library(*LIBRARY))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point's argument types on a loaded library."""
+    lib.kmanip_contacts.argtypes = [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int] + [_P] * 12
     lib.kmanip_contacts.restype = ctypes.c_int
     return lib
 
@@ -67,7 +71,7 @@ def contact_forces_batched(model: RobotModel, tip_pos, tip_vel, cube_pos, cube_q
                            ("cube_angvel", cube_angvel, (K, 3))):
         _check(name, x, device, shape)
     with torch.cuda.device(device):
-        model_f, model_i = _model_buffers(model, device)
+        model_f, _ = _model_buffers(model, device)
         out = ContactOut(
             force_cube=torch.empty((K, 3), dtype=torch.float32, device=device),
             torque_cube=torch.empty((K, 3), dtype=torch.float32, device=device),
@@ -76,7 +80,7 @@ def contact_forces_batched(model: RobotModel, tip_pos, tip_vel, cube_pos, cube_q
             touch_table=torch.empty((K,), dtype=torch.bool, device=device),
         )
         rc = _library().kmanip_contacts(
-            nq, T, model_f.data_ptr(), model_i.data_ptr(), K,
+            nq, T, model_f.data_ptr(), K,
             *(x.data_ptr() for x in inputs), *(x.data_ptr() for x in out),
             torch.cuda.current_stream(device).cuda_stream,
         )

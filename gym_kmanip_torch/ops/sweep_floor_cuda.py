@@ -26,11 +26,11 @@ import numpy as np
 import torch
 
 from gym_kmanip_torch.models import canonical_device
-from gym_kmanip_torch.ops import _build
+from gym_kmanip_torch.ops import _build, riccati_cuda
 from gym_kmanip_torch.ops.substep_cuda import _check
 
 SOURCES = ("sweep_floor.cu",)
-HEADERS = ("sweep_floor.cuh", "team.cuh")
+HEADERS = ("sweep_floor.cuh", "riccati.cuh", "team.cuh")
 LIBRARY = ("sweep_floor", SOURCES, HEADERS)
 # in the order of csrc/sweep_floor.cuh's FloorVariant
 VARIANTS = ("loop", "load1", "load1nostore", "mem", "gemm", "trans", "gersh")
@@ -66,6 +66,9 @@ def sweep(variant: str, AB, cx, cu, cxx, cuu, cux, WT):
     m = Z - n
     if n < m:
         raise ValueError(f"the experiment reads W[:m], so m <= n; got n={n}, m={m}")
+    if m > riccati_cuda.MAX_M:
+        raise ValueError(f"the kernel runs K4's one-warp steps, m <= {riccati_cuda.MAX_M}; "
+                         f"got m={m}")
     shapes = ((H, n, Z), (H, n), (H, m), (H, n, n), (H, m, m), (H, m, n), (n, 1 + n))
     for name, x, shape in zip(("AB", "cx", "cu", "cxx", "cuu", "cux", "WT"), tensors, shapes):
         _check(name, x, device, shape)

@@ -4,14 +4,15 @@
 
 Port of the JAX package's TPU experiment `tools/exp_sweep_floor.py`. Each
 variant (ops/sweep_floor_cuda.VARIANTS; csrc/sweep_floor.cuh says what each
-computes) cuts the sweep step down further: loop, load1, load1nostore, mem
-(the step loop, its barrier, its loads and stores), then gemm, trans and
-gersh (the products, the symmetrizations, the Gershgorin lift). On the
-experiment's seeded inputs at its widths (n = 40, m = 20, H = 100 unless
---horizon says otherwise), it prints the milliseconds per sweep of each
-variant, the best of 3 runs of 50 launches by CUDA events, beside the
-Riccati sweep kernel's (ops/riccati_cuda, K4) on the same inputs. Needs a
-CUDA device; exits non-zero without one.
+computes) is the Riccati sweep kernel's step (ops/riccati_cuda, K4) with
+more cut away: loop, load1, load1nostore, mem (the step loop, its barrier,
+its loads and stores), then gemm, trans and gersh (the products, the
+symmetrizations, the Gershgorin lift). On the experiment's seeded inputs at
+its widths (n = 40, m = 20, H = 100 unless --horizon says otherwise), it
+prints the milliseconds per sweep of each variant, the best of 3 runs of 50
+launches by CUDA events, as a share of K4's on the same inputs, and K4's
+less gersh's: what K4's factor and substitutions, which no variant runs,
+cost a sweep. Needs a CUDA device; exits non-zero without one.
 """
 
 import argparse
@@ -80,6 +81,9 @@ def main(argv=None):
     for v, ms in times.items():
         print(f"{v:13s} {ms:8.4f} ms/sweep ({ms / k4:6.1%} of K4)")
     print(f"{'K4 riccati':13s} {k4:8.4f} ms/sweep")
+    if "gersh" in times:
+        print(f"{'K4 - gersh':13s} {k4 - times['gersh']:8.4f} ms/sweep (K4's factor and "
+              f"substitutions)")
 
 
 if __name__ == "__main__":

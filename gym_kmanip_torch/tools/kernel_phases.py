@@ -1,22 +1,24 @@
 """Cycles per step, phase by phase, of the substep (K1), the pick-cost
-rollout (K2), the feedback rollout (K3) and the Riccati sweep (K4) on the
-card.
+rollout (K2), the feedback rollout (K3), the Riccati sweep (K4) and the
+contact model (K6) on the card.
 
-    python -m gym_kmanip_torch.tools.kernel_phases
+    python -m gym_kmanip_torch.tools.kernel_phases [K1 K2 K3 K4 K6]
 
 Builds the kernels again with a prelude that turns their phase marks
 (KMANIP_PHASE in csrc/substep_team.cuh, csrc/rollout.cuh,
-csrc/feedback_warp.cuh, csrc/riccati.cuh and the K1 and K2 kernels; no-ops
-in the normal build) into clock64 counters kept by thread 0 of block 0:
-each mark adds the cycles since the mark before to its phase. It runs them
-through their wrappers at the main path's shapes (K1: seeded solo states at
-K=256 with contact and at K=1,500 without, the iLQR FD probes' shape; K2:
-the solo arm, K=256, H=50, seeded controls; K3: the solo arm, B=6 step
-sizes, H=50, seeded nominal and gains; K4: the seeded problems at (50, 20,
-10) and (100, 40, 20)) and prints each phase's mean cycles per step (per
-launch for K1). A mark costs a few shared-memory operations on thread 0;
-the kernels' times are chip_smoke.py's. Needs nvcc and a CUDA device; exits
-non-zero without one.
+csrc/feedback_warp.cuh, csrc/riccati.cuh, csrc/staged_team.cuh and the K1
+and K2 kernels; no-ops in the normal build) into clock64 counters kept by
+one thread of block 0 (thread 0; for K6 the last lane of the first team,
+which sums the cube's force): each mark adds the cycles since the mark
+before to its phase. It runs them through their wrappers at the main
+path's shapes (K1: seeded solo states at K=256 with contact and at K=1,500
+without, the iLQR FD probes' shape; K2: the solo arm, K=256, H=50, seeded
+controls; K3: the solo arm, B=6 step sizes, H=50, seeded nominal and gains;
+K4: the seeded problems at (50, 20, 10) and (100, 40, 20); K6: seeded solo
+states at K=256 with fingertip and table contacts) and prints each phase's
+mean cycles per step (per launch for K1 and K6). A mark costs a few
+shared-memory operations on that thread; the kernels' times are
+chip_smoke.py's. Needs nvcc and a CUDA device; exits non-zero without one.
 """
 
 import ctypes
@@ -27,23 +29,28 @@ import sys
 import numpy as np
 import torch
 
+from gym_kmanip_torch.dynamics import engine
 from gym_kmanip_torch.dynamics.state import init_state
 from gym_kmanip_torch.models import get_model
-from gym_kmanip_torch.ops import _build, riccati_cuda, rollout_feedback_cuda
-from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda
+from gym_kmanip_torch.ops import _build, contacts_cuda, riccati_cuda, rollout_feedback_cuda
+from gym_kmanip_torch.ops import kinematics, rollout_pick_cuda, substep_cuda
 
 N_PHASES = 16
 PRELUDE = r"""
 #include <cuda_runtime.h>
+#ifndef KMANIP_PHASE_TID
+#define KMANIP_PHASE_TID 0
+#endif
 __device__ long long kmanip_phase_cycles[16];
 __shared__ long long kmanip_phase_acc[16];
 __shared__ long long kmanip_phase_last;
-#define KMANIP_PHASE_START() do { if (threadIdx.x == 0) { \
+#define KMANIP_PHASE_START() do { if (threadIdx.x == KMANIP_PHASE_TID) { \
   for (int p_ = 0; p_ < 16; ++p_) kmanip_phase_acc[p_] = 0; \
   kmanip_phase_last = clock64(); } } while (0)
-#define KMANIP_PHASE(k) do { if (threadIdx.x == 0) { const long long n_ = clock64(); \
+#define KMANIP_PHASE(k) do { if (threadIdx.x == KMANIP_PHASE_TID) { \
+  const long long n_ = clock64(); \
   kmanip_phase_acc[k] += n_ - kmanip_phase_last; kmanip_phase_last = n_; } } while (0)
-#define KMANIP_PHASE_STOP() do { if (threadIdx.x == 0 && blockIdx.x == 0) \
+#define KMANIP_PHASE_STOP() do { if (threadIdx.x == KMANIP_PHASE_TID && blockIdx.x == 0) \
   for (int p_ = 0; p_ < 16; ++p_) kmanip_phase_cycles[p_] = kmanip_phase_acc[p_]; } while (0)
 extern "C" int kmanip_phase_read(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, kmanip_phase_cycles, sizeof(kmanip_phase_cycles));
@@ -56,11 +63,13 @@ SUBSTEP_PHASES = {0: "step's inputs", 1: "FK", 2: "loads, tips, corners, Jacobia
                   11: "setup", 12: "outputs"}
 K4_PHASES = ("wait and barrier", "P1 GW", "P2 Q blocks", "P3 factor", "P4 gains and V",
              "P5 value update")
+K6_PHASES = ("stage", "tips and corners' states", "corner forces", "sums and outputs")
 
 
-def instrumented(module, name):
-    """The wrapper module's library built with the phase prelude and bound
-    like the normal one; also binds kmanip_phase_read."""
+def instrumented(module, name, flags=()):
+    """The wrapper module's library built with the phase prelude (and the
+    extra nvcc `flags`) and bound like the normal one; also binds
+    kmanip_phase_read."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     prelude = os.path.join(_build.BUILD_DIR,
                            f"phase_prelude_{hashlib.sha256(PRELUDE.encode()).hexdigest()[:8]}.cuh")
@@ -68,7 +77,7 @@ def instrumented(module, name):
         with open(prelude, "w") as f:
             f.write(PRELUDE)
     path = _build.library_path(f"{name}_phases", list(module.SOURCES), list(module.HEADERS),
-                               ("-include", prelude))
+                               ("-include", prelude, *flags))
     lib = module._bind(ctypes.CDLL(path))
     lib.kmanip_phase_read.argtypes = [ctypes.c_void_p]
     lib.kmanip_phase_read.restype = ctypes.c_int
@@ -153,22 +162,43 @@ def k4_phases(device, widths=((50, 20, 10), (100, 40, 20))):
     return out
 
 
+def k6_phases(device, K=256):
+    m = get_model("solo_arm")
+    q, v, _, cube = (torch.as_tensor(a, device=device)
+                     for a in substep_cuda.random_inputs(m, K, seed=7))
+    xp, xq, ax, _ = kinematics.rnea_terms(m, q, v)
+    tips, tip_vel, _, _ = engine._tip_state(m, xp, xq, ax, v)
+    args = tuple(a.contiguous() for a in (tips, tip_vel, cube[:, :3], cube[:, 3:7],
+                                           cube[:, 7:10], cube[:, 10:]))
+    # the timed thread: the first team's last lane, which sums the cube's force
+    lib = instrumented(contacts_cuda, "contacts", ("-DKMANIP_PHASE_TID=31",))
+    c = cycles(contacts_cuda, lib, lambda: contacts_cuda.contact_forces_batched(m, *args), 1)
+    return dict(zip(K6_PHASES, c))
+
+
 def line(phases):
     total = sum(phases.values())
     return ", ".join(f"{k} {v:.0f}" for k, v in phases.items()) + f"; sum {total:.0f}"
 
 
-def main():
+def main(argv=None):
+    kernels = set((sys.argv[1:] if argv is None else argv) or ("K1", "K2", "K3", "K4", "K6"))
     if not torch.cuda.is_available():
         sys.exit("kernel_phases: no CUDA device")
     device = torch.device("cuda", 0)
-    print(f"{torch.cuda.get_device_name(0)}; clock64 cycles per step, thread 0 of block 0")
-    for (K, contact), phases in k1_phases(device).items():
-        print(f"K1 solo K={K} contact={contact} (per launch): {line(phases)}")
-    print(f"K2 solo K=256 H=50: {line(k2_phases(device))}")
-    print(f"K3 solo B=6 H=50: {line(k3_phases(device))}")
-    for widths, phases in k4_phases(device).items():
-        print(f"K4 {widths}: {line(phases)}")
+    print(f"{torch.cuda.get_device_name(0)}; clock64 cycles per step, one thread of block 0")
+    if "K1" in kernels:
+        for (K, contact), phases in k1_phases(device).items():
+            print(f"K1 solo K={K} contact={contact} (per launch): {line(phases)}")
+    if "K2" in kernels:
+        print(f"K2 solo K=256 H=50: {line(k2_phases(device))}")
+    if "K3" in kernels:
+        print(f"K3 solo B=6 H=50: {line(k3_phases(device))}")
+    if "K4" in kernels:
+        for widths, phases in k4_phases(device).items():
+            print(f"K4 {widths}: {line(phases)}")
+    if "K6" in kernels:
+        print(f"K6 solo K=256 (per launch, lane 31 of block 0): {line(k6_phases(device))}")
 
 
 if __name__ == "__main__":

@@ -336,6 +336,28 @@ def test_rnea_kernel_ragged_batch_on_cuda(cuda, name, K):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+@pytest.mark.parametrize("K", [1, 255, 256, 257])
+def test_contact_kernel_ragged_batch_on_cuda(cuda, name, K):
+    """K6 on batches that do and do not fill the last block (several
+    rollouts per block): every row against the plain version, forces 1e-4,
+    flags equal, one launch."""
+    from gym_kmanip_torch.ops import contacts_cuda
+
+    m = get_model(name)
+    _, args = _staged_inputs(m, cuda, K=K, seed=K)
+    before = contacts_cuda.contact_forces_batched.launches
+    got = contacts_cuda.contact_forces_batched(m, *args)
+    want = contacts_cuda.contact_forces_batched_reference(m, *args)
+    torch.cuda.synchronize()
+    assert contacts_cuda.contact_forces_batched.launches == before + 1
+    for g, w in zip(got, want):
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("n", [6, 10, 20, 24])
 @pytest.mark.parametrize("K", [1, 37, 300])
 def test_spd_solve_kernel_ragged_batch_on_cuda(cuda, n, K):
@@ -402,26 +424,30 @@ def test_spd_solve_kernel_matches_plain_on_cuda(cuda, n):
 
 
 def test_sweep_floor_kernel_matches_plain_on_cuda(cuda):
-    """K8, every variant at the experiment's widths (H=100, n=40, m=20),
-    against its plain version at 1e-4 of the largest gain."""
+    """K8, every variant at the experiment's widths (H=100, n=40, m=20) and
+    at runtime widths (H=30, n=12, m=6), against its plain version at 1e-4
+    of the largest gain; m above 32 is refused."""
     from gym_kmanip_torch.ops import sweep_floor_cuda as sf
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    inputs = [torch.as_tensor(a, device=cuda) for a in sf.random_inputs(100, 40, 20)]
-    for v in sf.VARIANTS:
-        before = sf.sweep.launches
-        ks, Ks = sf.sweep(v, *inputs)
-        wks, wKs = sf.sweep_reference(v, *inputs)
-        torch.cuda.synchronize()
-        assert sf.sweep.launches == before + 1
-        scale = max(float(wks.abs().max()), float(wKs.abs().max()))
-        for g, w in ((ks, wks), (Ks, wKs)):
-            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=1e-4 * scale,
-                                       rtol=0, err_msg=v)
+    for H, n, m in ((100, 40, 20), (30, 12, 6)):
+        inputs = [torch.as_tensor(a, device=cuda) for a in sf.random_inputs(H, n, m)]
+        for v in sf.VARIANTS:
+            before = sf.sweep.launches
+            ks, Ks = sf.sweep(v, *inputs)
+            wks, wKs = sf.sweep_reference(v, *inputs)
+            torch.cuda.synchronize()
+            assert sf.sweep.launches == before + 1
+            scale = max(float(wks.abs().max()), float(wKs.abs().max()))
+            for g, w in ((ks, wks), (Ks, wKs)):
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=1e-4 * scale,
+                                           rtol=0, err_msg=f"{v} at {(H, n, m)}")
     with pytest.raises(ValueError):
         sf.sweep("unroll", *inputs)
     with pytest.raises(ValueError):
         sf.sweep("gersh", inputs[0].transpose(1, 2).contiguous(), *inputs[1:])
+    with pytest.raises(ValueError):
+        sf.sweep("gersh", *(torch.as_tensor(a, device=cuda) for a in sf.random_inputs(2, 40, 33)))
 
 
 @pytest.mark.parametrize("dt,implicit", MODES)

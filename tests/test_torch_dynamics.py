@@ -512,10 +512,10 @@ int with_team(int threads, int nq, int T, int contact, int implicit, F f) {
 
 """
 
-# the harness in three parts: the serial references, K3, K4, the staged
-# kernels (K7's team solve too) and the floor kernels; the team substep K1
-# and K5's team FK + RNEA; the team pick-cost rollout K2 (the last two
-# compiled once per model)
+# the harness in four parts: the serial references, K3, K4 and the staged
+# kernels (K7's team solve too); the team substep K1 and K5's team FK +
+# RNEA; the team pick-cost rollout K2 (these two compiled once per model);
+# K6's team contact model and the floor experiment K8
 _HOST_HARNESS = (r"""extern "C" int host_substep(int nq, int T, const float* mf, const int* mi, double dt,
     int contact, int implicit, int K, const float* qpos, const float* qvel,
     const float* ctrl, const float* cube13, float* qo, float* vo, float* co,
@@ -700,11 +700,6 @@ extern "C" int host_pick_contacts(int nq, int T, const float* mf, const int* mi,
   return 0;
 }
 
-// the single-threaded block code of the floor experiment
-struct NoSync {
-  void operator()() const {}
-};
-
 // K4: the sweep's block code on S threads, which form one team
 template <int NT, int MT, int TR, int TC, int S>
 void riccati_host(int H, int n, int m, float reg, float lam_extra, const float* A,
@@ -848,13 +843,6 @@ extern "C" int host_chol_solve_team(int threads, int n, int K, const float* M, c
   return -1;
 }
 
-extern "C" void host_sweep_floor(int variant, int H, int n, int m, const float* AB,
-    const float* cx, const float* cu, const float* cxx, const float* cuu, const float* cux,
-    const float* WT, float* ks, float* Ks) {
-  std::vector<float> sm(kmanip::floor_layout(n, m).total);
-  kmanip::sweep_floor_block(0, 1, NoSync{}, variant, H, n, m, AB, cx, cu, cxx, cuu, cux, WT,
-                            ks, Ks, sm.data());
-}
 """, r"""extern "C" int host_substep_team(int threads, int nq, int T, const float* mf, const int* mi,
     double dt, int contact, int implicit, int K, const float* qpos, const float* qvel,
     const float* ctrl, const float* cube13, float* qo, float* vo, float* co, bool* touch,
@@ -934,6 +922,101 @@ extern "C" int host_rnea_team(int threads, int nq, int T, const float* mf, const
   });
 }
 
+""", r"""// K6's team contact model (csrc/staged_team.cuh): the kernel's blocks of
+// `items` teams of S threads, one block after another, each team behind a
+// barrier of its own and the block behind one more
+template <int NQ, int TT, int S>
+void contacts_team_host(int items, const float* mf, int K, const float* const* in,
+                        float* force, float* torque, float* tip_forces, bool* touch_tip,
+                        bool* touch_table) {
+  using namespace kmanip;
+  const int nthr = S * items, n_blocks = (K + items - 1) / items;
+  std::vector<float> stage(contact_stage_floats<TT>(items)), slots(nthr);
+  std::vector<ContactWork<TT>> work(items);
+  std::vector<pthread_barrier_t> team_bar(items);
+  pthread_barrier_t block_bar;
+  for (auto& b : team_bar) pthread_barrier_init(&b, nullptr, S);
+  pthread_barrier_init(&block_bar, nullptr, nthr);
+  std::vector<std::thread> threads;
+  for (int tid = 0; tid < nthr; ++tid)
+    threads.emplace_back([&, tid] {
+      const HostTeam<S> team{tid % S, S > 1 ? &team_bar[tid / S] : nullptr,
+                             slots.data() + (tid / S) * S};
+      const HostBarrier sync{nthr > 1 ? &block_bar : nullptr};
+      for (int b = 0; b < n_blocks; ++b) {
+        contacts_block<TT>(tid, nthr, team, sync, items, (long)b * items, K,
+                           mf + ModelView<NQ, TT>::F_TIPRAD, stage.data(), work.data(), in[0],
+                           in[1], in[2], in[3], in[4], in[5], force, torque, tip_forces,
+                           touch_tip, touch_table);
+        sync();  // the stage and the teams' work are the next block's
+      }
+    });
+  for (auto& th : threads) th.join();
+  for (auto& b : team_bar) pthread_barrier_destroy(&b);
+  pthread_barrier_destroy(&block_bar);
+}
+
+extern "C" int host_contacts_team(int threads, int items, int nq, int T, const float* mf, int K,
+    const float* tp, const float* tv, const float* cp, const float* cq, const float* cl,
+    const float* ca, float* force, float* torque, float* tip_forces, bool* touch_tip,
+    bool* touch_table) {
+  const float* in[6] = {tp, tv, cp, cq, cl, ca};
+  auto widths = [&](auto n, auto t) {
+    constexpr int NQ = decltype(n)::value, TT = decltype(t)::value;
+    if (threads == 1) contacts_team_host<NQ, TT, 1>(items, mf, K, in, force, torque, tip_forces,
+                                                    touch_tip, touch_table);
+    else if (threads == 4) contacts_team_host<NQ, TT, 4>(items, mf, K, in, force, torque,
+                                                         tip_forces, touch_tip, touch_table);
+    else if (threads == 16) contacts_team_host<NQ, TT, 16>(items, mf, K, in, force, torque,
+                                                           tip_forces, touch_tip, touch_table);
+    else if (threads == 32) contacts_team_host<NQ, TT, 32>(items, mf, K, in, force, torque,
+                                                           tip_forces, touch_tip, touch_table);
+    else return -1;
+    return 0;
+  };
+  if (nq == 10 && T == 2) return widths(IC<10>{}, IC<2>{});
+  if (nq == 20 && T == 4) return widths(IC<20>{}, IC<4>{});
+  return -1;
+}
+
+// K8: the floor experiment's block code (csrc/sweep_floor.cuh) at the
+// experiment's widths, on S threads that form one team, as K4's
+template <int VAR, int S>
+void floor_host(int H, const float* const* in, float* ks, float* Ks) {
+  std::vector<float> sm(kmanip::riccati_layout(40, 20).total);
+  float slot[S];
+  run_team<S>([&](int tid, pthread_barrier_t* bar) {
+    kmanip::sweep_floor_block<VAR, 40, 20, 4, 2>(tid, S, HostTeam<S>{tid, bar, slot},
+                                                 HostBarrier{bar}, H, 40, 20, in[0], in[1],
+                                                 in[2], in[3], in[4], in[5], in[6], ks, Ks,
+                                                 sm.data());
+  });
+}
+
+template <int VAR>
+int floor_variant(int variant, int threads, int H, const float* const* in, float* ks,
+                  float* Ks) {
+  if constexpr (VAR >= kmanip::FLOOR_N_VARIANTS) {
+    return -1;
+  } else {
+    if (variant != VAR) return floor_variant<VAR + 1>(variant, threads, H, in, ks, Ks);
+    if (threads == 1) floor_host<VAR, 1>(H, in, ks, Ks);
+    else if (threads == 4) floor_host<VAR, 4>(H, in, ks, Ks);
+    else if (VAR == kmanip::FLOOR_GERSH && threads == 32) floor_host<VAR, 32>(H, in, ks, Ks);
+    else return -1;
+    return 0;
+  }
+}
+
+// threads = 1 or 4, or 32 for gersh (its lift reduces over a warp)
+extern "C" int host_sweep_floor(int threads, int variant, int H, int n, int m, const float* AB,
+    const float* cx, const float* cu, const float* cxx, const float* cuu, const float* cux,
+    const float* WT, float* ks, float* Ks) {
+  if (n != 40 || m != 20) return -1;
+  const float* in[7] = {AB, cx, cu, cxx, cuu, cux, WT};
+  return floor_variant<0>(variant, threads, H, in, ks, Ks);
+}
+
 """)
 
 
@@ -947,9 +1030,9 @@ def host_kernel(tmp_path_factory):
     if cxx is None:
         pytest.skip("no g++ to compile the kernel source for the host")
     d = tmp_path_factory.mktemp("host_kernel")
-    base, k1, k2 = _HOST_HARNESS
+    base, k1, k2, k8 = _HOST_HARNESS
     # the team parts once per model, their entry points named host_*_team_<nq>
-    parts = [_HOST_PRELUDE + base] + [
+    parts = [_HOST_PRELUDE + base, _HOST_PRELUDE + k8] + [
         f"#define HOST_NQ {nq}\n" + _HOST_PRELUDE
         + re.sub(r"(host_\w+_team)\(", rf"\1_{nq}(", part)
         for nq in (10, 20) for part in (k1, k2)]
@@ -1016,8 +1099,10 @@ def host_kernel(tmp_path_factory):
     so.host_spd_solve.restype = ctypes.c_int
     so.host_chol_solve_team.argtypes = [ctypes.c_int] * 3 + [P] * 3
     so.host_chol_solve_team.restype = ctypes.c_int
-    so.host_sweep_floor.argtypes = [ctypes.c_int] * 4 + [P] * 9
-    so.host_sweep_floor.restype = None
+    so.host_contacts_team.argtypes = [ctypes.c_int] * 4 + [P, ctypes.c_int] + [P] * 11
+    so.host_contacts_team.restype = ctypes.c_int
+    so.host_sweep_floor.argtypes = [ctypes.c_int] * 5 + [P] * 9
+    so.host_sweep_floor.restype = ctypes.c_int
     return so
 
 
@@ -1357,16 +1442,64 @@ def test_spd_solve_team_matches_serial_on_host(host_kernel, n):
 
 @pytest.mark.parametrize("variant", sweep_floor_cuda.VARIANTS)
 def test_sweep_floor_kernel_source_matches_plain_on_host(host_kernel, variant):
-    """csrc/sweep_floor.cuh run with one thread and a no-op barrier against
-    `sweep_reference` at the experiment's widths (n=40, m=20), H=6: 1e-4 of
-    the largest gain."""
+    """csrc/sweep_floor.cuh (on K4's pieces) on one thread and on four
+    behind a barrier, and gersh, whose lift reduces over a warp, also on
+    32, against `sweep_reference` at the experiment's widths (n=40, m=20),
+    H=6: 1e-4 of the largest gain."""
     H, n, m = 6, 40, 20
     inputs = sweep_floor_cuda.random_inputs(H, n, m)
-    ks = np.full((H, m), np.nan, np.float32)
-    Ks = np.full((H, m, n), np.nan, np.float32)
-    host_kernel.host_sweep_floor(sweep_floor_cuda.VARIANTS.index(variant), H, n, m,
-                                 *(_ptr(a) for a in inputs), _ptr(ks), _ptr(Ks))
     wks, wKs = sweep_floor_cuda.sweep_reference(variant, *(torch.as_tensor(a) for a in inputs))
     scale = max(float(wks.abs().max()), float(wKs.abs().max()))
-    for g, w in ((ks, wks.numpy()), (Ks, wKs.numpy())):
-        _close(g, w, 1e-4 * scale)
+    for threads in (1, 4, 32) if variant == "gersh" else (1, 4):
+        ks = np.full((H, m), np.nan, np.float32)
+        Ks = np.full((H, m, n), np.nan, np.float32)
+        assert host_kernel.host_sweep_floor(threads, sweep_floor_cuda.VARIANTS.index(variant), H,
+                                            n, m, *(_ptr(a) for a in inputs), _ptr(ks),
+                                            _ptr(Ks)) == 0
+        for g, w in ((ks, wks.numpy()), (Ks, wKs.numpy())):
+            _close(g, w, 1e-4 * scale, f"{threads} thread(s)")
+
+
+# K6's rollouts per block on the card (csrc/contacts.cu: a warp per
+# rollout, 4 warps per block)
+CONTACT_ITEMS = 4
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+@pytest.mark.parametrize("touching", [True, False])
+def test_contacts_team_matches_serial_on_host(host_kernel, name, touching):
+    """K6's team contact model (csrc/staged_team.cuh::contacts_block) on
+    teams of 1, 4, 16 and 32 threads behind barriers, in blocks of the
+    kernel's rollouts: bit for bit the serial contacts_item, every output.
+    On a batch with fingertip and table contacts whose size is not a
+    multiple of the block's rollouts (K=37), and on one with the cubes
+    lifted clear of the tips and the table."""
+    m = from_numpy_model(jax_get_model(name))
+    K, nq, T = 37 if touching else 16, m.nq, len(m.fingertips)
+    q, v, _, cube = substep_cuda.random_inputs(m, K, seed=7)
+    if not touching:
+        cube[:, 2] += 10.0
+    mf, mi = substep_cuda.pack_model(m)
+    xp, xq, ax, _ = kin.rnea_terms(m, _t(q), _t(v))
+    tips, tip_vel, _, _ = engine._tip_state(m, xp, xq, ax, _t(v))
+    args = [a.contiguous().numpy() for a in (tips, tip_vel)] + [
+        np.ascontiguousarray(cube[:, a:b]) for a, b in ((0, 3), (3, 7), (7, 10), (10, 13))]
+
+    def outputs():
+        return [np.zeros((K, 3), np.float32), np.zeros((K, 3), np.float32),
+                np.zeros((K, T, 3), np.float32), np.zeros((K, T), bool), np.zeros(K, bool)]
+
+    serial = outputs()
+    assert host_kernel.host_contacts(nq, T, _ptr(mf), _ptr(mi), K, *(_ptr(a) for a in args),
+                                     *(_ptr(o) for o in serial)) == 0
+    assert serial[3].any() == touching and serial[4].any() == touching
+    for threads in (1, 4, 16, 32):
+        got = outputs()
+        assert host_kernel.host_contacts_team(threads, CONTACT_ITEMS, nq, T, _ptr(mf), K,
+                                              *(_ptr(a) for a in args),
+                                              *(_ptr(o) for o in got)) == 0
+        for what, g, w in zip(("force", "torque", "tip_forces", "touch_tip", "touch_table"),
+                              got, serial):
+            np.testing.assert_array_equal(g.view(np.uint8 if g.dtype == bool else np.uint32),
+                                          w.view(np.uint8 if w.dtype == bool else np.uint32),
+                                          err_msg=f"{what}, {threads} thread(s)")
