@@ -77,6 +77,37 @@ Phases (any failure raises, and the script exits non-zero):
                   (1e-4 of the largest gain), then ms per sweep of each beside
                   K4's at the same widths, as a share of K4's, and K4's less
                   gersh's (what K4's factor and substitutions cost).
+ 10. env:         the four golden env traces (tests/golden/*_env_trace.npz)
+                  through the port's `make_task` on the card, full trace and
+                  teacher-forced, at tests/test_env_parity.py's bands; every
+                  env step launches K1 ten times (K=1), runs no plain
+                  substep, and solves its IK with the native host solver.
+                  K1 against its plain version on an env state and its
+                  device time per launch at K=1; native against numpy IK ms
+                  per solve; a 64-step episode of KManipSoloArm and of
+                  KManipTorso through KManipEnvSim with seeded random
+                  actions: steps/s, and ms per step split into goals (with
+                  the device-to-host copy), host IK, decode, control_step,
+                  obs and reward.
+ 11. lqr:         the solo iLQR of phase 7 (H=50) and the torso at H=100
+                  with the associative-scan backward (`parallel_backward`)
+                  against the serial K4 sweep and the plain serial sweep:
+                  launches, solves/s, the largest gap in us, the costs; the
+                  parallel cost must not exceed 1.1 x the serial + 1e-3
+                  (tests/test_mpc.py:266); and the solve on K4's plain
+                  version with and without its Gershgorin lift, whose
+                  final costs show what the lift does.
+ 12. oracle:      FD against the jacfwd oracle (A and B) at solo H=6 without
+                  contact, 5e-3 of the largest slope (tests/test_mpc.py:
+                  170-171); the ms of one jacfwd linearization.
+ 13. examples:    examples 9 (solve time, EE error at the last scored state
+                  and after the last control) and 11 at their sizes, and
+                  example 8 at 30 control steps, with their launches; the
+                  first K1 launch of each (robot, dt, contact, implicit, K)
+                  and the first K4 launch of each (H, n, m) in them (the
+                  iLQR solves' FD probes with contact and their full-state
+                  sweeps among them) replayed against the plain versions:
+                  K1 at phase 2's bands, K4 at 1e-4 of the largest gain.
 Only the staged route moves the K5, K6 and K7 counters: every other phase,
 and every plain-version call, leaves them as they were.
 The kernels line, then the card's name and power limit (nvidia-smi), then
@@ -84,11 +115,16 @@ The kernels line, then the card's name and power limit (nvidia-smi), then
 """
 
 import ctypes
+import dataclasses
+import functools
+import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -96,9 +132,12 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-from gym_kmanip_torch import constants  # noqa: E402
+from gym_kmanip_torch import constants, native  # noqa: E402
 from gym_kmanip_torch.dynamics import contacts, engine  # noqa: E402
-from gym_kmanip_torch.dynamics.state import init_state  # noqa: E402
+from gym_kmanip_torch.dynamics.state import SimState, init_state  # noqa: E402
+from gym_kmanip_torch.env import config as env_config  # noqa: E402
+from gym_kmanip_torch.env import env_sim  # noqa: E402
+from gym_kmanip_torch.env import task as env_task  # noqa: E402
 from gym_kmanip_torch.models import get_model, model_tensors  # noqa: E402
 from gym_kmanip_torch.mpc.cost import (  # noqa: E402
     CostParams, cube_pick_cost, make_ee_tracking_cost_ilqr)
@@ -110,7 +149,7 @@ from gym_kmanip_torch.ops import chol_solve_cuda, contacts_cuda, rnea_cuda  # no
 from gym_kmanip_torch.ops import kinematics as kin  # noqa: E402
 from gym_kmanip_torch.ops import linalg, sweep_floor_cuda  # noqa: E402
 from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda  # noqa: E402
-from gym_kmanip_torch.solvers import ilqr  # noqa: E402
+from gym_kmanip_torch.solvers import ik_host, ilqr  # noqa: E402
 from gym_kmanip_torch.tools import exp_sweep_floor  # noqa: E402
 from gym_kmanip_torch.utils import rotations as rot  # noqa: E402
 
@@ -866,23 +905,42 @@ def phase_ilqr_torso():
     log("torso", ee_line(ee_error_mm(model, s0, r.us, goal)))
 
 
-class Recorder:
-    """Records the arguments of call number `at` (from 0) of a module
-    function that the staged substep looks up at call time, and passes
-    every call on."""
+def _cloned(args):
+    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
 
-    def __init__(self, module, name, at):
+
+class Recorder:
+    """Stands in for a module function that its callers look up at call
+    time: records the arguments of call number `at` (from 0) and passes
+    every call on. With `key`, it also records the arguments and keywords
+    of the first call of each distinct key(*args) in `by_key`. A kernel
+    wrapper counts its launches on its module's name, which is this object
+    while it stands in: `launches` is the wrapper's own."""
+
+    def __init__(self, module, name, at=-1, key=None):
         self.module, self.name, self.fn = module, name, getattr(module, name)
         self.at, self.calls, self.args = at, 0, None
+        self.key, self.by_key = key, {}
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kwargs):
+        if self.calls == self.at:
+            self.args = _cloned(args)
+        if self.key is not None and self.key(*args) not in self.by_key:
+            self.by_key[self.key(*args)] = (_cloned(args), dict(zip(
+                kwargs, _cloned(kwargs.values()))))
+        self.calls += 1
+        return self.fn(*args, **kwargs)
 
     def __enter__(self):
-        def record(*args):
-            if self.calls == self.at:
-                self.args = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-            self.calls += 1
-            return self.fn(*args)
-
-        setattr(self.module, self.name, record)
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
@@ -1230,6 +1288,445 @@ def phase_sweep_floor():
     return row
 
 
+# ---- the single env, the parallel backward, the oracle, the examples ----
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+ENV_CASES = (("solo_arm_env_trace.npz", "KManipSoloArm", ("eer",)),
+             ("dual_arm_env_trace.npz", "KManipDualArm", ("eer", "eel")),
+             ("torso_env_trace.npz", "KManipTorso", ("eer", "eel")),
+             ("torso_inrange_env_trace.npz", "KManipTorso", ("eer", "eel")))
+
+
+def golden_case(trace, env_id):
+    """(data, cfg with the trace's recorded home, (reset, step, model), the
+    start state on the card)."""
+    data = np.load(os.path.join(GOLDEN, trace))
+    cfg = env_config.CONFIGS[env_id]
+    if "q_pos_home" in data.files:
+        cfg = dataclasses.replace(cfg, q_pos_home=np.asarray(data["q_pos_home"], np.float64))
+    task = env_task.make_task(cfg, device=DEV)
+    state = task[0](np.asarray(data["cube_spawn"], np.float32)).state
+    qh = torch.as_tensor(np.asarray(cfg.q_pos_home, np.float32), device=DEV)
+    return data, cfg, task, state._replace(qpos=qh, ctrl=qh[: task[2].nu])
+
+
+def golden_action(data, t, arms):
+    a = torch.as_tensor(data["actions"][t], dtype=torch.float32, device=DEV)
+    action = {}
+    for i, side in enumerate(arms):
+        action[f"{side}_pos"] = a[3 * i: 3 * i + 3]
+        action[f"{side}_orn"] = torch.zeros(3, device=DEV)
+        action[f"grip_{side[-1]}"] = torch.zeros(1, device=DEV)
+    return action
+
+
+def golden_pre_state(data, t, model, cfg):
+    """The reference's own state before step t, on the card."""
+    nq = model.nq
+    qpos, qvel = data["raw_qpos_pre"][t], data["raw_qvel_pre"][t]
+    prev = data["raw_ctrl"][t - 1] if t > 0 else cfg.q_pos_home[: model.nu]
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=DEV)
+
+    return SimState(qpos=f(qpos[:nq]), qvel=f(qvel[:nq]), ctrl=f(prev),
+                    cube_pos=f(qpos[nq: nq + 3]), cube_quat=f(qpos[nq + 3: nq + 7]),
+                    cube_linvel=f(qvel[nq: nq + 3]), cube_angvel=f(qvel[nq + 3: nq + 6]),
+                    time=torch.zeros((), device=DEV))
+
+
+def replay_golden(trace, env_id, arms):
+    """One golden trace through make_task on the card, full trace and
+    teacher-forced, at tests/test_env_parity.py's bands; every env step
+    launches K1 ten times. Returns a state of the trace (K1's env inputs)."""
+    data, cfg, (_, step_fn, model), state = golden_case(trace, env_id)
+    n = data["actions"].shape[0]
+    arm = list(cfg.q_id_r_mask) + (list(cfg.q_id_l_mask) if cfg.q_id_l_mask is not None
+                                   else [])
+    reset_counts()
+    q_dev, cube_dev, reward_dev, mid = [], [], [], None
+    for t in range(n):
+        out = step_fn(state, golden_action(data, t, arms))
+        state = out.state
+        mid = state if t == n // 2 else mid
+        q_dev.append(np.abs(out.obs["q_pos"].cpu().numpy() - data["q_pos"][t]))
+        cube_dev.append(np.abs(out.obs["cube_pos"].cpu().numpy() - data["cube_pos"][t]))
+        reward_dev.append(abs(float(out.reward) - float(data["reward"][t])))
+    if counts() != only(K1=10 * n):
+        raise AssertionError(f"env {trace}: launches {counts()} for {n} steps, expected "
+                             f"{10 * n} of K1 only")
+    q_dev, cube_dev = np.stack(q_dev), np.stack(cube_dev)
+    tag = f"{env_id} [{trace}]"
+    check("env", f"{tag}: IK-controlled arm joints (q_pos obs)", q_dev[:, arm].max(), 0.002)
+    check("env", f"{tag}: all joints (q_pos obs)", q_dev.max(), 0.06)
+    check("env", f"{tag}: settled cube", cube_dev[-1].max(), 0.002)
+    check("env", f"{tag}: cube", cube_dev.max(), 0.02)
+    check("env", f"{tag}: reward", max(reward_dev), 0.02)
+
+    parts = step_fn.parts
+    dev_ctrl, dev_dyn = [], []
+    reset_counts()
+    for t in range(n):
+        pre = golden_pre_state(data, t, model, cfg)
+        action = golden_action(data, t, arms)
+        qpos_np, goals_np, goals_dev = parts.goals(pre, action)
+        ctrl, qpos_ik, _, _ = env_task._decode_action(model, cfg, pre, action,
+                                                      parts.ik(qpos_np, goals_np), goals_dev)
+        dev_ctrl.append(np.abs(ctrl.double().cpu().numpy() - data["raw_ctrl"][t])[arm].max())
+        post, _ = engine.control_step(
+            model, pre._replace(qpos=qpos_ik),
+            torch.as_tensor(data["raw_ctrl"][t], dtype=torch.float32, device=DEV),
+            qpos_force=pre.qpos)
+        dev_dyn.append(np.abs(post.qpos.double().cpu().numpy()
+                              - data["raw_qpos_post"][t][: model.nq])[arm].max())
+    if counts() != only(K1=10 * n):
+        raise AssertionError(f"env {trace} teacher-forced: launches {counts()}")
+    check("env", f"{tag}: teacher-forced decode", max(dev_ctrl), 1e-4)
+    check("env", f"{tag}: teacher-forced dynamics", max(dev_dyn), 4.5e-4)
+    return model, mid
+
+
+def random_actions(cfg, n, seed):
+    """n seeded uniform actions of the env's action space (numpy)."""
+    rng = np.random.default_rng(seed)
+    sizes = {"eel_pos": 3, "eel_orn": 3, "eer_pos": 3, "eer_orn": 3, "grip_l": 1, "grip_r": 1}
+    sizes.update(q_pos_r=len(cfg.q_id_r_mask),
+                 q_pos_l=len(cfg.q_id_l_mask) if cfg.q_id_l_mask is not None else 0)
+    return [{a: rng.uniform(-1, 1, sizes[a]).astype(np.float32) for a in cfg.act_list}
+            for _ in range(n)]
+
+
+def env_episode(env_id):
+    """One 64-step episode of `env_id` through KManipEnvSim, seeded random
+    actions; then the same actions through the task's stages, each ended by
+    a synchronize, for the split of a step; and a profile of a few steps."""
+    cfg = env_config.CONFIGS[env_id]
+    n = constants.MAX_EPISODE_STEPS
+    shell = types.SimpleNamespace(cfg=cfg, obs_list=list(cfg.obs_list), cameras=[],
+                                  np_random=np.random.default_rng(0))
+    sim = env_sim.KManipEnvSim(shell, device=DEV)
+    actions = random_actions(cfg, n, seed=1)
+    sim.k_reset()
+    sim.k_step(actions[0])  # first step: the cached tensors
+    sim.k_reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    for a in actions:
+        _, reward, _, obs, sim_time = sim.k_step(a)
+    seconds = time.perf_counter() - t0
+    if counts() != only(K1=10 * n):
+        raise AssertionError(f"{env_id} episode: launches {counts()}, expected {10 * n} of K1")
+    if not (np.isfinite(reward) and all(np.all(np.isfinite(v)) for v in obs.values())
+            and abs(sim_time - n * constants.CONTROL_TIMESTEP) < 1e-4):
+        raise AssertionError(f"{env_id} episode ended non-finite or at time {sim_time}")
+
+    # the split: goals and the device-to-host copy, host IK, decode,
+    # control_step, obs and reward with the host copy
+    model, parts = sim.model, sim.step_fn.parts
+    state = sim.reset_fn(np.array([0.2, 0.6, 0.62], np.float32)).state
+    split = dict(goals=0.0, ik=0.0, decode=0.0, control_step=0.0, obs_reward=0.0)
+    for a in actions:
+        action = sim._device_action(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols = goals_dev = None
+        if parts.goals is not None:
+            qpos_np, goals_np, goals_dev = parts.goals(state, action)
+            t1 = time.perf_counter()
+            sols = parts.ik(qpos_np, goals_np)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            split["goals"] += t1 - t0
+            split["ik"] += t2 - t1
+            t0 = t2
+        ctrl, qpos_ik, _, _ = env_task._decode_action(model, cfg, state, action, sols,
+                                                      goals_dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, aux = engine.control_step(model, state._replace(qpos=qpos_ik), ctrl,
+                                         qpos_force=state.qpos)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        obs = env_task._observe(model, cfg, state)
+        reward = env_task._reward(model, cfg, state, aux)
+        torch.cat([v.reshape(-1) for v in obs.values()] + [reward.reshape(1)]).cpu()
+        t3 = time.perf_counter()
+        split["decode"] += t1 - t0
+        split["control_step"] += t2 - t1
+        split["obs_reward"] += t3 - t2
+    busy, n_launch, _ = device_profile(lambda: sim.k_step(actions[0]), 8)
+    ms = {key: 1e3 * v / n for key, v in split.items()}
+    log("env", f"{env_id}: {n}-step episode through KManipEnvSim in {seconds:.3f} s, "
+               f"{n / seconds:.2f} steps/s ({1e3 * seconds / n:.2f} ms per step); split of a "
+               f"step (synchronized, ms): goals + device-to-host copy {ms['goals']:.3f}, host "
+               f"IK {ms['ik']:.3f}, decode {ms['decode']:.3f} (decode and goals "
+               f"{ms['goals'] + ms['decode']:.3f}), control_step {ms['control_step']:.3f}, "
+               f"obs + reward + host copy {ms['obs_reward']:.3f}; profile of 8 steps: device "
+               f"busy {busy:.3f} ms per step ({busy * n / (1e3 * seconds):.1%} of the episode's "
+               f"step), {n_launch:.0f} kernel launches per step")
+
+
+def phase_env():
+    """The four golden env traces on the card (K1 at K=1, ten launches per
+    env step, no plain substep, the native host IK), K1 against its plain
+    version on the env's inputs and its device time at K=1, native against
+    numpy IK, and a 64-step episode of the solo arm and the torso."""
+    plain_substeps = Recorder(engine, "_substep_torch")
+    native_calls = Recorder(native, "solve_ik_native")
+    numpy_calls = Recorder(ik_host, "_solve_np")
+    if not native.available():
+        raise AssertionError(f"the native host IK did not build: {native.load_error()}")
+    with plain_substeps, native_calls, numpy_calls:
+        for trace, env_id, arms in ENV_CASES:
+            model, mid = replay_golden(trace, env_id, arms)
+            if env_id == "KManipSoloArm":
+                solo, solo_mid = model, mid
+        for env_id in ("KManipSoloArm", "KManipTorso"):
+            env_episode(env_id)
+    if plain_substeps.calls or numpy_calls.calls or not native_calls.calls:
+        raise AssertionError(f"env phase: {plain_substeps.calls} plain substeps, "
+                             f"{numpy_calls.calls} numpy IK solves, {native_calls.calls} native")
+    log("env", f"{native_calls.calls} host IK solves, all native; no plain substep")
+
+    # K1 at the env's shape: one rollout, 2 ms, explicit, with contact
+    s = solo_mid
+    inputs = [a[None].contiguous() for a in (s.qpos, s.qvel, s.ctrl, torch.cat(
+        [s.cube_pos, s.cube_quat, s.cube_linvel, s.cube_angvel]))]
+    err = compare_substep("env K=1 dt=0.002 explicit", solo, 0.002, True, False, inputs)
+    args = (solo, 0.002, True, False, *inputs)
+    ms = cuda_ms(lambda: substep_cuda.substep_batched(*args), 200)
+    plain_ms = cuda_ms(lambda: substep_cuda.substep_batched_reference(*args), 20)
+    profiled = kernel_device_ms(lambda: substep_cuda.substep_batched(*args), "substep_kernel")
+    T, nq, nu = len(solo.fingertips), solo.nq, solo.nu
+    b = bound(substep_flops(solo, True), 4 * (2 * nq + nu + 13) + 4 * (2 * nq + 13 + 7 * nq) + T)
+    log("K1", f"env K=1: device {1e3 * profiled:.2f} us per launch (profiler), CUDA events "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.8f} ms ({b[1]}); 10 launches "
+              f"per env step")
+
+    # host IK per solve: native against the numpy twin on a solo problem
+    cfg = env_config.CONFIGS["KManipSoloArm"]
+    _, step_fn, _ = env_task.make_task(cfg, device=DEV)
+    action = {"eer_pos": torch.tensor([1.0, -1.0, 0.5], device=DEV),
+              "eer_orn": torch.tensor([0.3, 0.0, -0.3], device=DEV),
+              "grip_r": torch.zeros(1, device=DEV)}
+    qpos_np, goals, _ = step_fn.parts.goals(solo_mid, action)
+    q_home = np.asarray(cfg.q_pos_home, np.float32).astype(np.float64)
+    ik_args = (qpos_np, *goals["r"], q_home, qpos_np)
+    ik_kw = dict(model=solo, q_mask=tuple(int(i) for i in cfg.q_id_r_mask), site_name="eer_site")
+    ik_ms = {}
+    for name, fn, reps in (("native", native.solve_ik_native, 200),
+                           ("numpy", ik_host._solve_np, 5)):
+        fn(*ik_args, **ik_kw)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(*ik_args, **ik_kw)
+        ik_ms[name] = 1e3 * (time.perf_counter() - t0) / reps
+        if name == "native":
+            q_native = out[0]
+    gap = float(np.abs(q_native - out[0]).max())
+    check("env", "host IK: native vs numpy solution", gap, 1e-9)
+    log("env", f"host IK per solo solve: native {ik_ms['native']:.4f} ms, numpy "
+               f"{ik_ms['numpy']:.2f} ms ({ik_ms['numpy'] / ik_ms['native']:.0f}x)")
+    return dict(K=1, launches_per_env_step=10, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                profiled_ms=profiled, bound_ms=b[0], bound_by=b[1])
+
+
+def phase_lqr():
+    """The production solo iLQR (H=50) and the torso at H=100 with the
+    associative-scan backward (`parallel_backward`) against the serial K4
+    sweep on the same problem, and against the plain serial sweep
+    (`pallas_backward=False`), the associative scan's exact counterpart
+    while lam_extra is 0 (tests/test_mpc.py:269)."""
+    variants = (("serial K4", dict()), ("serial linalg", dict(pallas_backward=False)),
+                ("parallel", dict(parallel_backward=True)))
+    # K4's plain version in the solve, with and without its Gershgorin lift:
+    # what the lift does to the solve's end, on the card (not timed)
+    twins = (("K4 plain", riccati_cuda.riccati_sweep_reference),
+             ("K4 plain, no Gershgorin lift", functools.partial(
+                 riccati_cuda.riccati_sweep_reference, gershgorin_lift=False)))
+    out = {}
+    for name, horizon, n_solves in (("solo_arm", H, 3), ("torso", TORSO_H, 1)):
+        model = get_model(name)
+        s0, _, cost_xu, quad_xu, cfg, us = ilqr_setup(model, horizon)
+        solvers = {key: ilqr.make_ilqr_solver(model, cfg._replace(**kw), cost_xu,
+                                              quad_xu=quad_xu) for key, kw in variants}
+        results, rates = {}, {key: [] for key in solvers}
+        for key, sweep in twins:
+            ops = ilqr.KERNEL_OPS._replace(riccati_sweep=sweep)
+            results[key] = ilqr.make_ilqr_solver(model, cfg, cost_xu, quad_xu=quad_xu,
+                                                 ops=ops)(s0, us)
+            trace = results[key].cost_trace.cpu().numpy()
+            log("lqr", f"{name} H={horizon} {key}: trace {np.array2string(trace, precision=5)}")
+        for key, solve in solvers.items():
+            solve(s0, us)  # first call builds the cached tensors
+            reset_counts()
+            results[key] = solve(s0, us)
+            torch.cuda.synchronize()
+            launches = counts()
+            k4 = 10 if key == "serial K4" else 0
+            want = (only(K1=10, K3=11, K4=k4) if name == "solo_arm"
+                    else only(K1=10 + 11 * horizon, K4=k4))
+            if launches != want:
+                raise AssertionError(f"lqr {name} {key}: launches {launches}, expected {want}")
+            trace = results[key].cost_trace.cpu().numpy()
+            if not (np.all(np.isfinite(trace)) and np.all(np.diff(trace) <= 1e-5)):
+                raise AssertionError(f"lqr {name} {key}: the cost trace is not monotone")
+            log("lqr", f"{name} H={horizon} {key}: trace {np.array2string(trace, precision=5)}")
+        for _ in range(3):
+            for key, solve in solvers.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n_solves):
+                    solve(s0, us)
+                torch.cuda.synchronize()
+                rates[key].append(n_solves / (time.perf_counter() - t0))
+        costs = {key: float(r.cost) for key, r in results.items()}
+        par = results["parallel"]
+        log("lqr", f"{name} H={horizon}: " + "; ".join(
+            f"{key} {rate_line(rates[key])}, cost {costs[key]:.6f}" for key in solvers)
+            + "; largest |us| gap, parallel vs serial K4 "
+            f"{max_err(par.us, results['serial K4'].us):.3e}, vs serial linalg "
+            f"{max_err(par.us, results['serial linalg'].us):.3e}; "
+            + "; ".join(f"{key} cost {costs[key]:.6f}" for key, _ in twins))
+        out[name] = dict(rates=rates, costs=costs)
+    # the bound of tests/test_mpc.py:266 on the final cost: against K4 on
+    # the solo arm, and against the plain serial sweep on both robots. On
+    # the torso K4's Gershgorin-adaptive lift takes another path than the
+    # unlifted sweeps (the serial one and the associative scan end
+    # together); the K4 plain twins, lifted and not, show what the lift does
+    for name, ref in (("solo_arm", "serial K4"), ("solo_arm", "serial linalg"),
+                      ("torso", "serial linalg")):
+        c = out[name]["costs"]
+        check("lqr", f"{name}: parallel final cost {c['parallel']:.6f} over 1.1 x the {ref} "
+                     f"{c[ref]:.6f} + 1e-3", max(c["parallel"] - 1.1 * c[ref] - 1e-3, 0.0), 0.0)
+    c = out["torso"]["costs"]
+    log("lqr", "torso, final costs over K4's: " + ", ".join(
+        f"{key} {c[key] / c['serial K4']:.4f}" for key in c if key != "serial K4"))
+    return out
+
+
+def phase_oracle():
+    """FD against the jacfwd oracle at solo H=6, contact off, in the
+    relative band of tests/test_mpc.py:170-171, off the joint and control
+    stops (the gripper sliders moved into their range); the ms of one
+    jacfwd linearization."""
+    model = get_model("solo_arm")
+    q = np.asarray(model.home_qpos, np.float32).copy()
+    q[8:10] = -0.012  # the sliders' home is their stop, a kink of the dynamics
+    s0 = init_state(model, device=DEV)
+    s0 = s0._replace(qpos=torch.as_tensor(q, device=DEV),
+                     ctrl=torch.as_tensor(q[: model.nu], device=DEV))
+
+    def cost_xu(x, u):
+        s = ilqr.unflatten_state(model, x, s0)
+        return 10.0 * torch.sum(s.qpos ** 2, -1) + 1e-2 * torch.sum(u ** 2, -1)
+
+    h = 6
+    cfg_fd = ilqr.ILQRConfig(horizon=h, n_iters=1, contact=False)
+    cfg_jac = cfg_fd._replace(fd_linearize=False, pallas_backward=False, fast_rollouts=False)
+    derivs_fd = ilqr._build_pieces(model, cfg_fd, cost_xu)[1]
+    rollout0, derivs_jac = ilqr._build_pieces(model, cfg_jac, cost_xu)[:2]
+    rng = np.random.RandomState(0)
+    us = ilqr._clip_u(model, torch.as_tensor(
+        (q[: model.nu] + 0.02 * rng.randn(h, model.nu)).astype(np.float32), device=DEV))
+    xs, _ = rollout0(ilqr.flatten_state(s0), us, s0)
+    A_fd, B_fd = derivs_fd(xs, us, s0)[:2]
+    A_j, B_j = derivs_jac(xs, us, s0)[:2]
+    for name, fd, jac in (("A", A_fd, A_j), ("B", B_fd, B_j)):
+        scale = float(jac.abs().max())
+        check("oracle", f"FD vs jacfwd {name} (slopes up to {scale:.3g})", max_err(fd, jac),
+              5e-3 * scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        derivs_jac(xs, us, s0)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 3
+    log("oracle", f"one jacfwd linearization (A, B and the cost blocks) at H={h}, n=33, m=10: "
+                  f"{ms:.1f} ms")
+    return ms
+
+
+def run_examples():
+    """Examples 9 and 11 at their sizes and example 8 at 30 control steps,
+    with their kernel launches counted."""
+    out = {}
+    reset_counts()
+    ex9 = importlib.import_module("gym_kmanip_torch.examples.9_mpc_ilqr").main(device=DEV)
+    launches = counts()
+    if not (ex9["finite"] and np.all(np.diff(ex9["cost_trace"]) <= 1e-5)
+            and launches["K1"] > 0 and launches["K4"] > 0):
+        raise AssertionError(f"example 9: {ex9}, launches {launches}")
+    log("examples", f"9_mpc_ilqr: solve {ex9['solve_s']:.2f} s, EE error "
+                    f"{ex9['ee_err_mm_scored']:.2f} mm at the last scored state, "
+                    f"{ex9['ee_err_mm_final']:.2f} mm after the last control; launches {launches}")
+    out["ex9"] = ex9
+    reset_counts()
+    ex11 = importlib.import_module("gym_kmanip_torch.examples.11_bimanual_torso").main(
+        device=DEV)
+    launches = counts()
+    if not (np.isfinite(ex11["dual"]["J"]) and np.all(np.isfinite(ex11["torso"]["cost_trace"]))
+            and launches["K1"] > 0 and launches["K4"] > 0):
+        raise AssertionError(f"example 11: {ex11}, launches {launches}")
+    log("examples", f"11_bimanual_torso: dual-arm MPPI {ex11['dual']['ms_per_solve']:.1f} ms per "
+                    f"solve; torso iLQR {ex11['torso']['solve_s']:.2f} s; launches "
+                    f"{launches}")
+    out["ex11"] = ex11
+    reset_counts()
+    ex8 = importlib.import_module("gym_kmanip_torch.examples.8_mpc_mppi").main(
+        n_control_steps=30, device=DEV)
+    launches = counts()
+    if not (ex8["finite"] and np.isfinite(ex8["tip_cube_m"]) and launches["K1"] > 0):
+        raise AssertionError(f"example 8: {ex8}, launches {launches}")
+    log("examples", f"8_mpc_mppi: 30 steps at {ex8['hz']:.2f} Hz closed loop, final tip-cube "
+                    f"{ex8['tip_cube_m']:.4f} m, touch steps {ex8['touch_steps']}; launches "
+                    f"{launches}")
+    out["ex8"] = ex8
+    return out
+
+
+def phase_examples():
+    """The examples (run_examples), with the arguments of the first K1
+    launch of each (robot, dt, contact, implicit, K) and the first K4
+    launch of each (H, n, m) recorded: the iLQR solves' FD probe batches
+    (contact on, K = H (n + m)), line searches and rollouts, the MPPI
+    solves and the plants, and the full-state sweeps, which take K4's
+    runtime-width code. Each is replayed through its kernel and its plain
+    version: K1 at compare_substep's bands, K4 at 1e-4 of the largest gain.
+    Returns the errors, for the K1 and K4 rows."""
+    k1_rec = Recorder(substep_cuda, "substep_batched",
+                      key=lambda m, dt, contact, implicit, q, *_: (
+                          m.nq, dt, contact, implicit, q.shape[0]))
+    k4_rec = Recorder(riccati_cuda, "riccati_sweep",
+                      key=lambda A, B, *_: (A.shape[0], A.shape[1], B.shape[2]))
+    kernel_ops = ilqr.KERNEL_OPS
+    with k1_rec, k4_rec:
+        # a solver takes KERNEL_OPS as it stands when it is built
+        ilqr.KERNEL_OPS = kernel_ops._replace(riccati_sweep=riccati_cuda.riccati_sweep)
+        try:
+            run_examples()
+        finally:
+            ilqr.KERNEL_OPS = kernel_ops
+    rows = {"K1": [], "K4": []}
+    for (nq, dt, contact, implicit, k_), (args, _) in sorted(k1_rec.by_key.items()):
+        tag = f"examples nq={nq} K={k_} dt={dt} contact={contact} implicit={implicit}"
+        err = compare_substep(tag, *args[:4], [a.contiguous() for a in args[4:]])
+        rows["K1"].append(dict(nq=nq, K=k_, dt=dt, contact=contact, implicit=implicit,
+                               max_abs_err=err))
+    for (h, n, m), (args, kwargs) in sorted(k4_rec.by_key.items()):
+        got = riccati_cuda.riccati_sweep(*args, **kwargs)
+        want = riccati_cuda.riccati_sweep_reference(*args, **kwargs)
+        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+        lam = float(kwargs.get("lam_extra", 0.0))
+        check("K4", f"examples ({h}, {n}, {m}), lam_extra {lam:.3g}: kernel vs plain (gains "
+                    f"up to {scale:.3g})", err, 1e-4 * scale)
+        rows["K4"].append(dict(H=h, n=n, m=m, max_abs_err=err))
+    if not rows["K1"] or not rows["K4"]:
+        raise AssertionError(f"the examples recorded no launch: {rows}")
+    return rows
+
+
 def strip(r):
     """A nested row for the kernels line: its bound as bound_ms and
     bound_by, nothing else that is not a number, a string or a row."""
@@ -1300,6 +1797,18 @@ def main():
     reset_counts()
     k8 = phase_sweep_floor()
     no_staged_launch("the K8 phase")
+    t_new = time.perf_counter()
+    k1["env"] = phase_env()
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1["env"]["max_abs_err"])
+    phase_oracle()
+    examples = phase_examples()
+    for name, r in (("K1", k1), ("K4", k4)):
+        r["examples"] = examples[name]
+        r["max_abs_err"] = max([r["max_abs_err"]] + [e["max_abs_err"] for e in examples[name]])
+    phase_lqr()
+    no_staged_launch("the env, lqr, oracle and examples phases")
+    log("done", f"the env, lqr, oracle and examples phases took "
+                f"{time.perf_counter() - t_new:.1f} s")
 
     rows = [
         ("substep_batched", "substep.cu", "gym_kmanip_tpu/ops/pallas_substep.py:404", k1),
@@ -1322,13 +1831,14 @@ def main():
             raise AssertionError(f"{name} was not launched on its main path")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # the row's own numbers are the main path's; a second path or shape
-    # (K1's iLQR probes, the torso, K7 at n = 20, K8's other variants, the
+    # (K1's iLQR probes and the env's K=1 step, K1's and K4's shapes in the
+    # examples, the torso, K7 at n = 20, K8's other variants, the
     # alternate builds) sits under a key of its own, as does the device time
     # per launch that the profiler read on the staged route and in the iLQR
     # solve (profiled_ms), and on phase 8's inputs (device_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("ilqr", "torso", "n20", "variants", "k4_ms", "profiled_ms", "profiled_ms_k1500",
-             "device_ms", "teams", "alternates")
+    extra = ("ilqr", "env", "examples", "torso", "n20", "variants", "k4_ms", "profiled_ms",
+             "profiled_ms_k1500", "device_ms", "teams", "alternates")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

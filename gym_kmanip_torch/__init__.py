@@ -2,12 +2,15 @@
 
 The JAX package (`gym_kmanip_tpu`) is the reference; this package mirrors
 its module names and is held to it by `tests/test_torch_*.py`. It imports
-torch and numpy only, never JAX, gymnasium or the JAX package, and reads
-the JAX package's MJCF assets by path.
+torch and numpy only, never JAX or the JAX package (gymnasium only where
+`env.register()` or the Gym shell `KManipEnv` is asked for), and reads the
+JAX package's MJCF assets by path.
 
-Ported so far: the solo-arm MPPI pick solve (models, dynamics, MPC), with
-the physics substep as a hand-written CUDA kernel for Hopper
-(`ops/substep_cuda.py`, `csrc/substep.cu`).
+Ported so far: the solo-arm MPPI pick solve (models, dynamics, MPC), the
+iLQR solve (solvers/ilqr.py, solvers/parallel_lqr.py), the single Gym env
+for the non-vision ids (env/, solvers/ik_host.py, native/) and examples 8,
+9 and 11. Every Pallas kernel of the JAX package is a hand-written CUDA
+kernel for Hopper in `csrc/`, bound by the `ops/*_cuda.py` wrappers.
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,17 @@
-"""Constants the solo-arm MPPI slice reads.
+"""Constants the port reads.
 
 A copy of the values in `gym_kmanip_tpu/constants.py` (physics, contact,
-limit, cube, table and reward constants, robot home poses), so the port
-needs neither JAX nor the JAX package at run time.
+limit, cube, table and reward constants, robot home poses, and the env's
+action scales, masks, spawn range and IK weights), so the port needs
+neither JAX nor the JAX package at run time. The camera specs belong to
+the vision slice and are not here yet.
 `tests/test_torch_models.py` holds every value here equal to the JAX
 package's.
 """
 
 import os
-from typing import Tuple
+from collections import OrderedDict as ODict
+from typing import List, OrderedDict, Tuple
 
 import numpy as np
 from numpy.typing import NDArray
@@ -24,6 +27,15 @@ SOLO_ARM_MJCF: str = "_env_solo_arm.xml"
 DUAL_ARM_MJCF: str = "_env_dual_arm.xml"
 TORSO_MJCF: str = "_env_torso.xml"
 
+SOLO_ARM_URDF: str = "stompy_tiny_solo_arm_glb.urdf"
+DUAL_ARM_URDF: str = "stompy_dual_arm_tiny_glb.urdf"
+TORSO_URDF: str = "stompy_tiny_glb/robot.urdf"
+
+# episode
+MAX_EPISODE_STEPS: int = 64
+FPS: int = 30
+MAX_Q_VEL: float = np.pi  # rad/s, the q_vel observation's scale
+
 # timing
 CONTROL_TIMESTEP: float = 0.02  # seconds per control step
 PHYSICS_TIMESTEP: float = 0.002  # 10 substeps per control step
@@ -32,7 +44,38 @@ GRAVITY: Tuple[float, float, float] = (0.0, 0.0, -9.81)
 
 EPSILON: float = 1e-6
 
+# exponential filter of the control signal (1 = passthrough)
+CTRL_ALPHA: float = 1.0
+
+# host IK residual and Jacobian weights
+IK_RES_RAD: float = 0.02
+IK_RES_REG_PREV: float = 6e-3
+IK_RES_REG_HOME: float = 2e-6
+IK_JAC_RAD: float = 0.02
+IK_JAC_REG: float = 9e-3
+
+# Gym space dtypes
+OBS_DTYPE: np.dtype = np.float64
+
+# cube spawn bounds (x, y, z rows of [lo, hi])
+CUBE_SPAWN_RANGE: NDArray = np.array(
+    [
+        [0.1, 0.3],
+        [0.5, 0.7],
+        [0.6, 0.7],
+    ]
+)
+
+# action scales: EE deltas, joint deltas, gripper slider range and step
+EE_POS_DELTA: NDArray = np.array([0.01, 0.01, 0.01])
+EE_ORN_DELTA: NDArray = np.array([0.1, 0.1, 0.1])
+Q_POS_DELTA: float = 0.1  # radians
+EE_S_MIN: float = -0.029  # closed
+EE_S_MAX: float = 0.005  # open
+EE_S_DELTA: float = 0.0001
+
 # reward shaping (the cube-pick cost is its negation)
+REWARD_SUCCESS_THRESHOLD: float = 2.0
 REWARD_VEL_PENALTY: float = 0.01
 REWARD_GRIP_DIST: float = 0.01
 REWARD_TOUCH_CUBE: float = 1.0
@@ -75,18 +118,85 @@ FRICTION_IMPEDANCE: float = 0.9
 CUBE_MAX_LINVEL: float = 4.0
 CUBE_MAX_ANGVEL: float = 50.0
 
-# home poses, in MJCF qpos order (the shipped assets' "home" keyframes)
+# home poses, keyed by the MJCF joint names in qpos order (the shipped
+# assets' "home" keyframes)
 ACT_DTYPE = np.float32
-Q_SOLO_ARM_HOME: NDArray = np.array(
-    [0.0, 0.75, 1.0, 1.0, 2.0, -2.0, 0.0, 0.0, 0.005, 0.005], dtype=ACT_DTYPE
-)
-Q_DUAL_ARM_HOME: NDArray = np.array(
-    [0.0, 0.75, 1.0, 1.0, 2.0, -2.7, 0.0, 0.0, 0.005, 0.005,
-     0.0, -0.75, -1.0, -1.0, 2.0, 0.0, 0.0, 0.0, 0.005, 0.005],
-    dtype=ACT_DTYPE,
-)
-Q_TORSO_HOME: NDArray = np.array(
-    [-1.0, 0.0, 1.7, 1.6, 0.34, 1.6, 1.4, -0.26, 0.0, 0.0, 0.0,
-     -1.7, -1.6, -0.34, -1.6, -1.4, -1.7, 0.0, 0.0, 0.0],
-    dtype=ACT_DTYPE,
-)
+Q_SOLO_ARM_HOME_DICT: OrderedDict[str, float] = ODict()
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_x8_1_dof_x8"] = 0.0
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_x8_2_dof_x8"] = 0.75
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_x6_1_dof_x6"] = 1.0
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_x6_2_dof_x6"] = 1.0
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_x4_1_dof_x4"] = 2.0
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_x4_3_dof_x4"] = -2.0
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_x4_1_dof_x4"] = 0.0
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_x4_2_dof_x4"] = 0.0
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_slider_3"] = 0.005
+Q_SOLO_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_slider_1"] = 0.005
+Q_SOLO_ARM_HOME: NDArray = np.array(list(Q_SOLO_ARM_HOME_DICT.values()), dtype=ACT_DTYPE)
+Q_SOLO_ARM_KEYS: List[str] = list(Q_SOLO_ARM_HOME_DICT.keys())
+
+Q_DUAL_ARM_HOME_DICT: OrderedDict[str, float] = ODict()
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_x8_1_dof_x8"] = 0.0
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_x8_2_dof_x8"] = 0.75
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_x6_1_dof_x6"] = 1.0
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_x6_2_dof_x6"] = 1.0
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_x4_1_dof_x4"] = 2.0
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_x4_3_dof_x4"] = -2.7
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_x4_1_dof_x4"] = 0.0
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_x4_2_dof_x4"] = 0.0
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_slider_3"] = 0.005
+Q_DUAL_ARM_HOME_DICT["joint_right_arm_1_hand_right_1_slider_1"] = 0.005
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_x8_1_dof_x8"] = 0.0
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_x8_2_dof_x8"] = -0.75
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_x6_1_dof_x6"] = -1.0
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_x6_2_dof_x6"] = -1.0
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_x4_1_dof_x4"] = 2.0
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_hand_left_1_x4_3_dof_x4"] = 0.0
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_hand_left_1_x4_1_dof_x4"] = 0.0
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_hand_left_1_x4_2_dof_x4"] = 0.0
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_hand_left_1_slider_3"] = 0.005
+Q_DUAL_ARM_HOME_DICT["joint_left_arm_1_hand_left_1_slider_1"] = 0.005
+Q_DUAL_ARM_HOME: NDArray = np.array(list(Q_DUAL_ARM_HOME_DICT.values()), dtype=ACT_DTYPE)
+Q_DUAL_ARM_KEYS: List[str] = list(Q_DUAL_ARM_HOME_DICT.keys())
+
+Q_TORSO_HOME_DICT: OrderedDict[str, float] = ODict()
+Q_TORSO_HOME_DICT["joint_head_1_x4_1_dof_x4"] = -1.0
+Q_TORSO_HOME_DICT["joint_head_1_x4_2_dof_x4"] = 0.0
+Q_TORSO_HOME_DICT["joint_right_arm_1_x8_1_dof_x8"] = 1.7
+Q_TORSO_HOME_DICT["joint_right_arm_1_x8_2_dof_x8"] = 1.6
+Q_TORSO_HOME_DICT["joint_right_arm_1_x6_1_dof_x6"] = 0.34
+Q_TORSO_HOME_DICT["joint_right_arm_1_x6_2_dof_x6"] = 1.6
+Q_TORSO_HOME_DICT["joint_right_arm_1_x4_1_dof_x4"] = 1.4
+Q_TORSO_HOME_DICT["joint_right_arm_1_hand_1_x4_1_dof_x4"] = -0.26
+Q_TORSO_HOME_DICT["joint_right_arm_1_hand_1_slider_1"] = 0.0
+Q_TORSO_HOME_DICT["joint_right_arm_1_hand_1_slider_2"] = 0.0
+Q_TORSO_HOME_DICT["joint_right_arm_1_hand_1_x4_2_dof_x4"] = 0.0
+Q_TORSO_HOME_DICT["joint_left_arm_2_x8_1_dof_x8"] = -1.7
+Q_TORSO_HOME_DICT["joint_left_arm_2_x8_2_dof_x8"] = -1.6
+Q_TORSO_HOME_DICT["joint_left_arm_2_x6_1_dof_x6"] = -0.34
+Q_TORSO_HOME_DICT["joint_left_arm_2_x6_2_dof_x6"] = -1.6
+Q_TORSO_HOME_DICT["joint_left_arm_2_x4_1_dof_x4"] = -1.4
+Q_TORSO_HOME_DICT["joint_left_arm_2_hand_1_x4_1_dof_x4"] = -1.7
+Q_TORSO_HOME_DICT["joint_left_arm_2_hand_1_slider_1"] = 0.0
+Q_TORSO_HOME_DICT["joint_left_arm_2_hand_1_slider_2"] = 0.0
+Q_TORSO_HOME_DICT["joint_left_arm_2_hand_1_x4_2_dof_x4"] = 0.0
+Q_TORSO_HOME: NDArray = np.array(list(Q_TORSO_HOME_DICT.values()), dtype=ACT_DTYPE)
+Q_TORSO_KEYS: List[str] = list(Q_TORSO_HOME_DICT.keys())
+
+# the env's joint masks (IK-controlled arm joints) and gripper ctrl ids
+Q_ID_R_MASK_SOLO: NDArray = np.array([0, 1, 2, 3, 4, 5, 6])
+CTRL_ID_R_GRIP_SOLO: NDArray = np.array([8, 9])
+
+Q_ID_R_MASK_DUAL: NDArray = np.array([0, 1, 2, 3, 4, 5, 6])
+Q_ID_L_MASK_DUAL: NDArray = np.array([10, 11, 12, 13, 14, 15, 16])
+CTRL_ID_R_GRIP_DUAL: NDArray = np.array([8, 9])
+CTRL_ID_L_GRIP_DUAL: NDArray = np.array([18, 19])
+
+Q_ID_R_MASK_TORSO: NDArray = np.array([2, 3, 4, 5, 6, 7])
+Q_ID_L_MASK_TORSO: NDArray = np.array([11, 12, 13, 14, 15, 16])
+CTRL_ID_R_GRIP_TORSO: NDArray = np.array([8, 9])
+CTRL_ID_L_GRIP_TORSO: NDArray = np.array([17, 18])
+
+# mocap objects set by the decoded EE goals
+MOCAP_ID_R: int = 0
+MOCAP_ID_L: int = 1

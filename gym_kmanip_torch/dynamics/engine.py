@@ -35,6 +35,10 @@ def _tip_state(model: RobotModel, xpos, xquat, axis_w, qvel):
     """World fingertip positions (..., T, 3), velocities (..., T, 3),
     translational Jacobians (..., T, 3, nq) and radii (T,)."""
     t = model_tensors(model, qvel.device)
+    if not model.fingertips:  # custom robots without gripper collision spheres
+        batch = torch.broadcast_shapes(xpos.shape[:-2], qvel.shape[:-1])
+        z = qvel.new_zeros(batch + (0, 3))
+        return z, z, qvel.new_zeros(batch + (0, 3, model.nq)), t.tip_radius
     pos, jac = [], []
     for i, tip in enumerate(model.fingertips):
         p = xpos[..., tip.parent, :] + rot.quat_rotate(
@@ -250,16 +254,31 @@ def control_step(model: RobotModel, state: SimState, ctrl: torch.Tensor,
     """One 20 ms control step = N_SUBSTEPS physics substeps of 2 ms, then
     the diagnostics at the final state.
 
-    `qpos_force` (the env's split-step parity input) belongs to the env
-    slice and is not ported yet."""
-    if qpos_force is not None:
-        raise NotImplementedError("control_step(qpos_force=...) is not ported yet")
+    `qpos_force` (env parity): dm_control's split step runs `mj_step2`
+    first, so the FIRST substep's forces come from the kinematics of the
+    state BEFORE the task scribbled its IK iterates into qpos, while the
+    integration proceeds from the scribbled qpos. Passing the pre-decode
+    qpos here reproduces that: substep 1 computes its accelerations at
+    `qpos_force` and rebases the position update onto `state.qpos` (clipped
+    to the joint range widened by LIMIT_SAFETY_MARGIN); the other
+    N_SUBSTEPS - 1 substeps are coherent. On the card every substep is one
+    launch of the substep kernel."""
+    t = model_tensors(model, state.qpos.device)
     state = state._replace(ctrl=ctrl.to(state.qpos.dtype))
+    n_substeps = k.N_SUBSTEPS
     touch = None
-    for _ in range(k.N_SUBSTEPS):
+    if qpos_force is not None:
+        q_tele = state.qpos
+        s1, (touch, _xp, _xq) = substep(
+            model, state._replace(qpos=qpos_force.to(q_tele.dtype)), k.PHYSICS_TIMESTEP)
+        q_rebased = torch.clamp(q_tele + k.PHYSICS_TIMESTEP * s1.qvel,
+                                t.jnt_lo - k.LIMIT_SAFETY_MARGIN,
+                                t.jnt_hi + k.LIMIT_SAFETY_MARGIN)
+        state = s1._replace(qpos=q_rebased)
+        n_substeps -= 1
+    for _ in range(n_substeps):
         state, (touch, _xp, _xq) = substep(model, state, k.PHYSICS_TIMESTEP)
 
-    t = model_tensors(model, state.qpos.device)
     xpos, xquat, _ = kin.fk(model, state.qpos)
     site_pos, site_quat = kin.all_site_poses(model, xpos, xquat)
     _, _, touch_table = contacts.cube_table(
@@ -275,3 +294,9 @@ def control_step(model: RobotModel, state: SimState, ctrl: torch.Tensor,
         tip_pos=_tips_from_frames(model, xpos, xquat),
     )
     return state, aux
+
+
+def make_control_step(model: RobotModel):
+    """The plant's control step closed over a model: (state, ctrl[,
+    qpos_force]) -> (state, aux)."""
+    return partial(control_step, model)

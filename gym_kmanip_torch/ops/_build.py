@@ -6,6 +6,9 @@ and the flags. A finished library is written atomically (a temporary file,
 then a rename), so concurrent processes never load half a file. The C
 interface keeps PyTorch's headers out of the build, which takes seconds.
 
+`compile_to` is the atomic build step itself; the native host IK
+(native/__init__.py) builds through it with g++.
+
 Nothing here runs at import time: the CPU tests import the port on a host
 without nvcc or a GPU.
 """
@@ -64,28 +67,36 @@ def library_path(name: str, sources, headers, flags=()) -> str:
     return _build(name, sources, headers, flags)[0]
 
 
+def compile_to(out: str, compiler, sources) -> str:
+    """Run `compiler` (a command without its output) on `sources` into a
+    temporary file in BUILD_DIR, then rename it to `out`, so a concurrent
+    process never loads half a library. Returns the compiler's stderr."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [*compiler, "-o", tmp, *sources]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{compiler[0]} failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return proc.stderr
+
+
 def _build(name: str, sources, headers, flags=()):
     """(library path, nvcc's stderr); the stderr is empty if the library
     was built already."""
     out = os.path.join(BUILD_DIR, f"{name}_{_digest(sources, headers, flags)}.so")
     if os.path.exists(out):
         return out, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
-               *(os.path.join(CSRC_DIR, s) for s in sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stderr
+    log = compile_to(out, [find_nvcc(), *NVCC_FLAGS, *flags],
+                     [os.path.join(CSRC_DIR, s) for s in sources])
+    return out, log
 
 
 def load_library(name: str, sources, headers) -> ctypes.CDLL:

@@ -165,9 +165,11 @@ def chol_solve_dropping(Q: torch.Tensor, RHS: torch.Tensor, lam) -> torch.Tensor
 
 
 def riccati_sweep_reference(A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg: float,
-                            lam_extra=None):
+                            lam_extra=None, gershgorin_lift: bool = True):
     """The plain PyTorch version of `riccati_sweep`, on any device: the
-    same step math in torch ops, one step at a time."""
+    same step math in torch ops, one step at a time. `gershgorin_lift`
+    False drops the Gershgorin term of the lift, which the kernel always
+    adds (an experiment's switch: what the lift does to a solve)."""
     lam_extra = _lam_tensor(lam_extra, A)
     H, n, m = A.shape[0], A.shape[1], B.shape[2]
     eye_m = torch.eye(m, dtype=A.dtype, device=A.device)
@@ -187,8 +189,8 @@ def riccati_sweep_reference(A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg: float
         amax = torch.max(torch.abs(Quu))
         dg = torch.diagonal(Quu)
         gersh_min = torch.min(dg - (torch.sum(torch.abs(Quu), dim=1) - torch.abs(dg)))
-        lam = (1e-5 * amax + torch.clamp(1e-4 * amax - gersh_min, min=0.0)
-               + lam_extra * amax)
+        lift = torch.clamp(1e-4 * amax - gersh_min, min=0.0) if gershgorin_lift else 0.0
+        lam = 1e-5 * amax + lift + lam_extra * amax
         C = torch.cat([Qu[:, None], Qux], dim=1)  # (m, 1+n)
         Kk = -chol_solve_dropping(Quu, C, lam)
         U1 = Quu @ Kk + lam * Kk

@@ -5,13 +5,17 @@ rollout and `n_iters` iterations of
 
   * linearization: branch-consistent finite differences, all H x (n + m)
     probes (one-sided; centered with fd_order=2) as ONE batched substep
-    call, so one substep-kernel launch per iteration on the card;
+    call, so one substep-kernel launch per iteration on the card; or,
+    with fd_linearize=False, the exact oracle `vmap(jacfwd)` through the
+    plain substep;
   * cost quadratization: a user `quad_xu` (e.g. the Gauss-Newton model of
     `mpc.cost.make_ee_tracking_cost_ilqr`), else `torch.func` grad and
     hessian of `cost_xu`;
   * backward pass: the Riccati sweep kernel (ops/riccati_cuda) with the
     Gershgorin-adaptive lift and the adaptive `lam_extra`
-    (`pallas_backward`), else a serial sweep with `torch.linalg.solve`;
+    (`pallas_backward`), the O(log H) associative scan of
+    solvers/parallel_lqr (`parallel_backward`), else a serial sweep with
+    `torch.linalg.solve`;
   * forward pass: a line search over the fixed alpha schedule, all step
     sizes at once, through the whole-horizon feedback-rollout kernel
     (ops/rollout_feedback_cuda) on the reduced state of small robots, else
@@ -28,6 +32,7 @@ cube_angvel] (2 nq + 13), or [qpos, qvel] with `reduced_state`. Costs
 `cost_xu(x, u)` take batched x (..., n) and u (..., nu) and return (...).
 """
 
+from functools import partial
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -39,6 +44,7 @@ from gym_kmanip_torch.dynamics.state import SimState
 from gym_kmanip_torch.models import model_tensors
 from gym_kmanip_torch.models.spec import RobotModel
 from gym_kmanip_torch.ops import riccati_cuda, rollout_feedback_cuda
+from gym_kmanip_torch.solvers.parallel_lqr import LQRProblem, backward_associative
 
 
 class ILQRConfig(NamedTuple):
@@ -55,11 +61,11 @@ class ILQRConfig(NamedTuple):
     # False for the smooth reach/track regime iLQR is built for (contact
     # at the 20 ms control rate is impact-dominated)
     contact: bool = True
-    # the associative-scan backward (not ported yet)
+    # the O(log H) associative-scan backward (solvers/parallel_lqr)
     parallel_backward: bool = False
     # the Riccati sweep kernel; False = serial sweep with linalg.solve
     pallas_backward: bool = True
-    # finite-difference linearization; False = jacfwd oracle (not ported)
+    # finite-difference linearization; False = the jacfwd oracle
     fd_linearize: bool = True
     fd_eps: float = 1e-3
     # 1: one-sided probes (H x (n+m)); 2: centered (H x 2(n+m))
@@ -159,9 +165,11 @@ def _zero_quad_final(x):
 
 
 def _build_pieces(model: RobotModel, cfg: ILQRConfig, cost_xu, cost_final=None,
-                  quad_xu=None, quad_final=None, ops: ILQROps = KERNEL_OPS):
+                  quad_xu=None, quad_final=None, ops: Optional[ILQROps] = None):
     """The solve's pieces: (rollout0, derivs, backward, linesearch,
-    iteration), each taking the solve's state0 as `template`."""
+    iteration), each taking the solve's state0 as `template`. `ops` None
+    is `KERNEL_OPS` as it stands when the pieces are built."""
+    ops = KERNEL_OPS if ops is None else ops
     if cost_final is None:
         cost_final = _zero_final
         quad_final = quad_final if quad_final is not None else _zero_quad_final
@@ -169,16 +177,6 @@ def _build_pieces(model: RobotModel, cfg: ILQRConfig, cost_xu, cost_final=None,
         raise ValueError(
             "reduced_state drops the cube from the solver state, which is "
             "only exact when contact=False (no robot<->cube coupling)"
-        )
-    if cfg.parallel_backward:
-        raise NotImplementedError(
-            "parallel_backward (solvers/parallel_lqr) is not ported yet: "
-            "ROADMAP.md Queue 1 item 1"
-        )
-    if not cfg.fd_linearize:
-        raise NotImplementedError(
-            "fd_linearize=False (the jacfwd oracle) is not ported yet: "
-            "ROADMAP.md Queue 1 item 2"
         )
     if cfg.fd_order not in (1, 2):
         raise ValueError(f"fd_order is 1 or 2, not {cfg.fd_order}")
@@ -209,6 +207,29 @@ def _build_pieces(model: RobotModel, cfg: ILQRConfig, cost_xu, cost_final=None,
             s, _ = ops.substep(model, s, cfg.dt, cfg.contact, True)
         return flatten_state(s, reduced=cfg.reduced_state)
 
+    def f_oracle(x, u, template):
+        """Dynamics of one state (n,), (nu,) -> (n,) through the plain
+        substep, for the jacfwd oracle (JAX ilqr.py:171-179, the lapack-path
+        graph). The CUDA kernels have no derivative, so this runs the plain
+        version on whatever device the state is on: the one place where a
+        plain version runs on the card, by design, as the JAX oracle
+        differentiates its jnp graph and not the Pallas kernel. The state
+        carries a batch of one, since torch.func's forward mode promotes
+        the tangent of a 0-dim tensor times a Python float to float64."""
+        s = unflatten_state(model, x[None], template)._replace(ctrl=u[None])
+        for _ in range(cfg.n_substeps):
+            s, _ = engine._substep_torch(model, s, cfg.dt, cfg.contact, True)
+        return flatten_state(s, reduced=cfg.reduced_state)[0]
+
+    # the costs of one state, evaluated on a batch of one: torch.func's
+    # forward mode promotes the tangent of a 0-dim tensor times a Python
+    # float to float64, and an FK-bearing cost makes such products
+    def cost1(x, u):
+        return cost_xu(x[None], u[None])[0]
+
+    def final1(x):
+        return cost_final(x[None])[0]
+
     def total_cost(xs, us):
         return (cost_xu(xs[..., :-1, :], us).sum(-1) + cost_final(xs[..., -1, :]))
 
@@ -232,7 +253,9 @@ def _build_pieces(model: RobotModel, cfg: ILQRConfig, cost_xu, cost_final=None,
         xs = torch.stack(xs)
         return xs, total_cost(xs, us)
 
-    def derivs(xs, us, template):
+    def fd_slopes(xs, us, template):
+        """A and B by branch-consistent finite differences: all probes
+        as one batched substep call."""
         c = const(xs.device)
         X, U = xs[:-1], us
         Hh = X.shape[0]
@@ -267,24 +290,44 @@ def _build_pieces(model: RobotModel, cfg: ILQRConfig, cost_xu, cost_final=None,
             A = ((Y[:, :n] - Y[:, n: 2 * n]) / (sxp + sxm)[:, :, None]).transpose(1, 2)
             B = ((Y[:, 2 * n: 2 * n + nu] - Y[:, 2 * n + nu:])
                  / (sup + sum_)[:, :, None]).transpose(1, 2)
+        return A, B
+
+    def derivs(xs, us, template):
+        X, U = xs[:-1], us
+        if cfg.fd_linearize:
+            A, B = fd_slopes(xs, us, template)
+        else:
+            A, B = tfunc.vmap(tfunc.jacfwd(partial(f_oracle, template=template),
+                                           argnums=(0, 1)))(X, U)
         if quad_xu is not None:
             cx, cu, cxx, cuu, cux = quad_xu(X, U)
         else:
-            cx = tfunc.vmap(tfunc.grad(cost_xu, argnums=0))(X, U)
-            cu = tfunc.vmap(tfunc.grad(cost_xu, argnums=1))(X, U)
-            cxx = tfunc.vmap(tfunc.hessian(cost_xu, argnums=0))(X, U)
-            cuu = tfunc.vmap(tfunc.hessian(cost_xu, argnums=1))(X, U)
-            cux = tfunc.vmap(tfunc.jacfwd(tfunc.grad(cost_xu, argnums=1), argnums=0))(X, U)
+            cx = tfunc.vmap(tfunc.grad(cost1, argnums=0))(X, U)
+            cu = tfunc.vmap(tfunc.grad(cost1, argnums=1))(X, U)
+            cxx = tfunc.vmap(tfunc.hessian(cost1, argnums=0))(X, U)
+            cuu = tfunc.vmap(tfunc.hessian(cost1, argnums=1))(X, U)
+            cux = tfunc.vmap(tfunc.jacfwd(tfunc.grad(cost1, argnums=1), argnums=0))(X, U)
         if quad_final is not None:
             Vx_T, Vxx_T = quad_final(xs[-1])
         else:
-            Vx_T = tfunc.grad(cost_final)(xs[-1])
-            Vxx_T = tfunc.hessian(cost_final)(xs[-1])
+            Vx_T = tfunc.grad(final1)(xs[-1])
+            Vxx_T = tfunc.hessian(final1)(xs[-1])
         return A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T
 
     def backward(A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, lam_extra):
         """Regularized backward sweep; `lam_extra` is the adaptive
         Levenberg multiplier (a 0-d tensor), threaded by `iteration`."""
+        if cfg.parallel_backward:
+            # the associative form has no per-step B'VxxB before the scan, so
+            # the adaptive lift scales with |cuu| only: identical to the
+            # serial path whenever lam_extra == 0
+            eye_u = torch.eye(nu, dtype=A.dtype, device=A.device)
+            amax_c = torch.amax(torch.abs(cuu), dim=(1, 2))[:, None, None] + 1.0
+            prob = LQRProblem(A=A, B=B, d=A.new_zeros(A.shape[:2]), Q=cxx, q=cx,
+                              R=cuu + (cfg.reg + lam_extra * amax_c) * eye_u, r=cu, L=cux,
+                              Qf=Vxx_T, qf=Vx_T)
+            Ks, ks = backward_associative(prob)
+            return ks, Ks
         if cfg.pallas_backward:
             return ops.riccati_sweep(
                 *(a.contiguous() for a in (A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T)),
@@ -357,16 +400,16 @@ def make_ilqr_solver(model: RobotModel, cfg: ILQRConfig, cost_xu: Callable,
                      cost_final: Optional[Callable] = None,
                      quad_xu: Optional[Callable] = None,
                      quad_final: Optional[Callable] = None,
-                     ops: ILQROps = KERNEL_OPS):
+                     ops: Optional[ILQROps] = None):
     """Solver handle: (state0, u_init (H, nu)) -> ILQRResult, on the device
     of state0.
 
     `quad_xu(x, u) -> (cx, cu, cxx, cuu, cux)` and `quad_final(x) -> (Vx,
     Vxx)` optionally replace the autodiff quadratization with an analytic
     or Gauss-Newton model; `cost_xu` still scores rollouts and the line
-    search. `ops` picks the kernels (default) or their plain versions
-    (`PLAIN_OPS`). Unlike the JAX handle, which keeps the state0 of its
-    first call as the template, each call uses its own state0."""
+    search. `ops` picks the kernels (None: `KERNEL_OPS`) or their plain
+    versions (`PLAIN_OPS`). Unlike the JAX handle, which keeps the state0
+    of its first call as the template, each call uses its own state0."""
     rollout0, _, _, _, iteration = _build_pieces(model, cfg, cost_xu, cost_final, quad_xu,
                                                  quad_final, ops)
 

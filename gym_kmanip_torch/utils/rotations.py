@@ -94,6 +94,15 @@ def euler_xyz_to_quat(euler: torch.Tensor) -> torch.Tensor:
     return quat_mul(qz, quat_mul(qy, qx))
 
 
+def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> extrinsic x-y-z Euler angles (scipy "xyz" convention)."""
+    m = quat_to_mat(q)
+    ex = torch.atan2(m[..., 2, 1], m[..., 2, 2])
+    ey = torch.asin(torch.clamp(-m[..., 2, 0], -1.0, 1.0))
+    ez = torch.atan2(m[..., 1, 0], m[..., 0, 0])
+    return torch.stack([ex, ey, ez], dim=-1)
+
+
 # ---- float64 numpy twins for the host-side model loader ----
 
 

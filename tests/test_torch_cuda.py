@@ -478,3 +478,106 @@ def test_staged_substep_matches_plain_on_cuda(cuda, dt, implicit):
                       (got.cube_angvel, want.cube_angvel, 1e-4), (xp, wxp, 1e-5),
                       (xq, wxq, 1e-5)):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol, rtol=0)
+
+
+def _golden_env(device):
+    """(data, task on `device`, start state) of the solo golden env trace."""
+    import os
+
+    from gym_kmanip_torch.env.config import CONFIGS
+    from gym_kmanip_torch.env.task import make_task
+
+    data = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                                "solo_arm_env_trace.npz"))
+    cfg = CONFIGS["KManipSoloArm"]
+    reset_fn, step_fn, m = make_task(cfg, device=device)
+    state = reset_fn(np.asarray(data["cube_spawn"], np.float32)).state
+    qh = torch.as_tensor(np.asarray(cfg.q_pos_home, np.float32), device=device)
+    return data, step_fn, m, state._replace(qpos=qh, ctrl=qh[: m.nu])
+
+
+def _golden_action(data, t, device):
+    return {"eer_pos": torch.as_tensor(data["actions"][t], dtype=torch.float32, device=device),
+            "eer_orn": torch.zeros(3, device=device), "grip_r": torch.zeros(1, device=device)}
+
+
+def test_env_step_on_card_matches_cpu(cuda):
+    """The solo golden env trace on the card: every step from the CPU
+    trace's own pre-step state against that CPU step (ten K1 launches per
+    step, no plain substep) at the plant's band (tests/test_torch_plant.py:
+    qpos 1e-5, qvel and cube 1e-4; the reward 1e-4, so no touch flag flips);
+    and the whole trace on the card against the MuJoCo golden at
+    tests/test_env_parity.py's bands."""
+    from gym_kmanip_torch.dynamics.state import SimState
+
+    data, step_cpu, _, s_cpu = _golden_env("cpu")
+    _, step_gpu, m, s_gpu = _golden_env(cuda)
+    arm = list(range(7))
+    q_dev = []
+    for t in range(data["actions"].shape[0]):
+        before = substep_cuda.substep_batched.launches
+        out_g = step_gpu(SimState(*(x.to(cuda) for x in s_cpu)), _golden_action(data, t, cuda))
+        torch.cuda.synchronize()
+        assert substep_cuda.substep_batched.launches == before + 10
+        out_c = step_cpu(s_cpu, _golden_action(data, t, "cpu"))
+        for f, tol in (("qpos", 1e-5), ("qvel", 1e-4), ("cube_pos", 1e-4),
+                       ("cube_linvel", 1e-4), ("cube_angvel", 1e-4)):
+            np.testing.assert_allclose(getattr(out_g.state, f).cpu().numpy(),
+                                       getattr(out_c.state, f).numpy(), atol=tol, rtol=0,
+                                       err_msg=f"step {t}: {f}")
+        assert abs(float(out_g.reward) - float(out_c.reward)) < 1e-4, t
+        s_cpu = out_c.state
+        out = step_gpu(s_gpu, _golden_action(data, t, cuda))
+        s_gpu = out.state
+        q_dev.append(np.abs(out.obs["q_pos"].cpu().numpy() - data["q_pos"][t]))
+        if t == data["actions"].shape[0] - 1:
+            cube = np.abs(out.obs["cube_pos"].cpu().numpy() - data["cube_pos"][t])
+    q_dev = np.stack(q_dev)
+    assert q_dev[:, arm].max() < 0.002 and q_dev.max() < 0.06
+    assert cube.max() < 0.002
+
+
+def test_native_ik_on_gpu_host(cuda):
+    """The GPU host builds the native host IK (g++), and it agrees with the
+    numpy twin to 1e-9 (tests/test_native_ik.py)."""
+    from gym_kmanip_torch import native
+    from gym_kmanip_torch.solvers.ik_host import _solve_np, fk_np, site_pose_np
+
+    assert native.available(), native.load_error()
+    m = get_model("solo_arm")
+    q = np.asarray(m.home_qpos, np.float64)
+    xp, xq, _ = fk_np(m, q)
+    p, o = site_pose_np(m, xp, xq, "eer_site")
+    args = (q, p + np.array([0.01, -0.02, 0.01]), o, m.home_qpos, q)
+    kw = dict(model=m, q_mask=tuple(range(7)), site_name="eer_site")
+    for a, b in zip(native.solve_ik_native(*args, **kw), _solve_np(*args, **kw)):
+        np.testing.assert_allclose(a, b, atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "torso"])
+def test_control_step_qpos_force_matches_cpu_on_cuda(cuda, name):
+    """control_step(qpos_force=...) on the card (ten K1 launches) against
+    the CPU's plain substeps, at tests/test_torch_plant.py's tolerances:
+    qpos 1e-5, qvel and cube 1e-4, sites 1e-5, flags exact."""
+    from gym_kmanip_torch.dynamics import engine
+    from gym_kmanip_torch.dynamics.state import SimState, init_state
+
+    m = get_model(name)
+    rng = np.random.RandomState(5)
+    s = init_state(m, cube_pos=np.array([0.15, 0.58, 0.62]), device="cpu")
+    ctrl = torch.as_tensor((m.home_qpos[: m.nu] + rng.randn(m.nu) * 0.1).astype(np.float32))
+    q_force = s.qpos + torch.as_tensor(rng.randn(m.nq).astype(np.float32)) * 0.01
+    want, want_aux = engine.control_step(m, s, ctrl, qpos_force=q_force)
+    before = substep_cuda.substep_batched.launches
+    got, aux = engine.control_step(m, SimState(*(x.to(cuda) for x in s)), ctrl.to(cuda),
+                                   qpos_force=q_force.to(cuda))
+    torch.cuda.synchronize()
+    assert substep_cuda.substep_batched.launches == before + 10
+    for f, tol in (("qpos", 1e-5), ("qvel", 1e-4), ("cube_pos", 1e-4), ("cube_quat", 1e-4),
+                   ("cube_linvel", 1e-4), ("cube_angvel", 1e-4)):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(), getattr(want, f).numpy(),
+                                   atol=tol, rtol=0, err_msg=f)
+    np.testing.assert_allclose(aux.site_pos.cpu().numpy(), want_aux.site_pos.numpy(),
+                               atol=1e-5, rtol=0)
+    for f in ("touch_r", "touch_l", "touch_table"):
+        assert bool(getattr(aux, f)) == bool(getattr(want_aux, f)), f

@@ -1,0 +1,40 @@
+"""The port's examples 8, 9 and 11 run end to end on the CPU at tiny
+sizes (their `main()` keyword arguments): finite results, the shapes the
+JAX examples print, and the parts that are not ported raising."""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+
+def _example(name):
+    return importlib.import_module(f"gym_kmanip_torch.examples.{name}")
+
+
+def test_example_9_ilqr_reports_both_ee_errors():
+    out = _example("9_mpc_ilqr").main(horizon=3, n_iters=2, device="cpu")
+    assert out["finite"] and out["ee_err_mm"].shape == (3,)
+    assert out["ee_err_mm_scored"] == out["ee_err_mm"][-2]
+    assert out["ee_err_mm_final"] == out["ee_err_mm"][-1]
+    trace = out["cost_trace"]
+    assert trace.shape == (2,) and np.all(np.isfinite(trace)) and np.all(np.diff(trace) <= 1e-5)
+
+
+def test_example_11_bimanual_and_torso():
+    out = _example("11_bimanual_torso").main(device="cpu", dual_horizon=2, n_samples=8,
+                                             n_solves=1, torso_horizon=2, n_iters=1)
+    assert np.isfinite(out["dual"]["J"]) and out["dual"]["ms_per_solve"] > 0
+    assert out["torso"]["cost_trace"].shape == (1,)
+    assert np.all(np.isfinite(out["torso"]["cost_trace"]))
+
+
+def test_example_8_mppi_closed_loop():
+    ex = _example("8_mpc_mppi")
+    out = ex.main(horizon=2, n_samples=8, n_control_steps=2, device="cpu")
+    assert out["finite"] and np.isfinite(out["tip_cube_m"]) and out["hz"] > 0
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        ex.main(sharded=True, device="cpu")

@@ -175,11 +175,14 @@ def test_ilqr_card_path_on_cpu_descends_like_jax(solo, jax_ref):
 
 def test_ilqr_refuses_unported_options(solo):
     cost_xu, quad_xu = solo["fns"]
+    # the associative-scan backward and the jacfwd oracle are ported
+    # (tests/test_torch_parallel_lqr.py holds them); both build
     for kw in (dict(parallel_backward=True), dict(fd_linearize=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ilqr.make_ilqr_solver(solo["m"], _cfg(ilqr, **kw), cost_xu)
+        ilqr.make_ilqr_solver(solo["m"], _cfg(ilqr, **kw), cost_xu)
     with pytest.raises(ValueError):
         ilqr.make_ilqr_solver(solo["m"], ilqr.ILQRConfig(reduced_state=True), cost_xu)
+    with pytest.raises(ValueError, match="fd_order"):
+        ilqr.make_ilqr_solver(solo["m"], _cfg(ilqr, fd_order=3), cost_xu)
     # flatten / unflatten round trip on a batch, the cube from the template
     s0 = solo["s0"]
     x = ilqr.flatten_state(s0, reduced=True).expand(4, -1)

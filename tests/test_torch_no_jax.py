@@ -81,6 +81,33 @@ _SCRIPT = textwrap.dedent(
         raise AssertionError("the floor tool ran without a CUDA device")
     except SystemExit as e:
         assert e.code != 0
+    # the env without gymnasium: one solo step of the task core (host IK)
+    # and the backend driven by a duck-typed shell; register() needs gymnasium
+    import types
+    import numpy as np
+    from gym_kmanip_torch import env as kenv
+    from gym_kmanip_torch.env.config import CONFIGS
+    from gym_kmanip_torch.env.env_sim import KManipEnvSim
+    from gym_kmanip_torch.env.task import make_task
+    from gym_kmanip_torch.solvers.parallel_lqr import backward_associative
+    cfg = CONFIGS["KManipSoloArm"]
+    reset_fn, step_fn, m = make_task(cfg, device="cpu")
+    out = step_fn(reset_fn(np.array([0.2, 0.6, 0.62], np.float32)).state,
+                  {"eer_pos": torch.tensor([1.0, 0.0, -1.0]), "eer_orn": torch.zeros(3),
+                   "grip_r": torch.zeros(1)})
+    assert out.state.qpos.shape == (m.nq,) and bool(torch.isfinite(out.reward))
+    shell = types.SimpleNamespace(cfg=cfg, obs_list=list(cfg.obs_list), cameras=[],
+                                  np_random=np.random.default_rng(0))
+    sim = KManipEnvSim(shell, device="cpu")
+    sim.k_reset()
+    _, r, _, obs, t = sim.k_step({"eer_pos": np.zeros(3), "eer_orn": np.zeros(3),
+                                  "grip_r": np.zeros(1)})
+    assert sorted(obs) == sorted(cfg.obs_list) and abs(t - 0.02) < 1e-6
+    try:
+        kenv.register()
+        raise AssertionError("register() ran without gymnasium")
+    except ImportError as e:
+        assert "gymnasium" in str(e), e
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
@@ -97,4 +124,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     ok, n_modules = proc.stdout.split()[-2:]
-    assert ok == "OK" and int(n_modules) >= 20
+    assert ok == "OK" and int(n_modules) >= 30

@@ -3,11 +3,11 @@ end-of-step diagnostics) against the JAX package's on the same inputs.
 
 Both sides compute on identical constants (`from_numpy_model`). Tolerances:
 qpos 1e-5, qvel and cube 1e-4, sites and fingertips 1e-5, flags exact.
+`qpos_force` is held against the JAX package in tests/test_torch_env_jax.py.
 """
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from gym_kmanip_tpu.dynamics.engine import control_step as jcontrol_step
@@ -51,5 +51,9 @@ def test_control_step_matches_jax():
         _close(getattr(aux, f), getattr(jaux, f), 1e-5, f)
     for f in ("touch_r", "touch_l", "touch_table"):
         assert bool(getattr(aux, f)) == bool(getattr(jaux, f)), f
-    with pytest.raises(NotImplementedError):
-        engine.control_step(m, s, _t(ctrl), qpos_force=s.qpos)
+    # forces at the state's own qpos: the first substep's rebase is the
+    # plain integration (no joint reaches the safety clamp here)
+    s3, aux3 = engine.control_step(m, s, _t(ctrl), qpos_force=s.qpos)
+    for f in s2._fields:
+        assert torch.equal(getattr(s3, f), getattr(s2, f)), f
+    assert torch.equal(aux3.site_pos, aux.site_pos) and bool(aux3.touch_r) == bool(aux.touch_r)
