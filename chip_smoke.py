@@ -108,6 +108,20 @@ Phases (any failure raises, and the script exits non-zero):
                   iLQR solves' FD probes with contact and their full-state
                   sweeps among them) replayed against the plain versions:
                   K1 at phase 2's bands, K4 at 1e-4 of the largest gain.
+ 14. vec:         the vec env (env/vec_env.KManipVecEnv) at example 12's N = 64:
+                  one 64-step KManipSoloArm episode and 4 steps past its
+                  autoreset, and 16 steps of KManipTorso (two float32 TRFs
+                  a step), each step ten K1 launches at K = 64 and no plain
+                  substep; env and vec steps/s; the TRF's trials, syncs and
+                  launches per solve; launches, syncs and the device-busy
+                  share of a vec step; the TRF with each of cuSOLVER's SVD
+                  drivers; its split (goals, TRF,
+                  control_step, obs and reward); the card's TRF against the
+                  float64 host solver on 3 x 64 problems (largest rad
+                  distance, at most 1e-3, and status flips); one vec step's
+                  ten K1 launches against the plain substep at phase 2's
+                  bands, K1's device time at K = 64; two PPO updates of
+                  example 12 (N = 64, T = 16), updates/s.
 Only the staged route moves the K5, K6 and K7 counters: every other phase,
 and every plain-version call, leaves them as they were.
 The kernels line, then the card's name and power limit (nvidia-smi), then
@@ -125,6 +139,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -138,6 +153,7 @@ from gym_kmanip_torch.dynamics.state import SimState, init_state  # noqa: E402
 from gym_kmanip_torch.env import config as env_config  # noqa: E402
 from gym_kmanip_torch.env import env_sim  # noqa: E402
 from gym_kmanip_torch.env import task as env_task  # noqa: E402
+from gym_kmanip_torch.env.vec_env import KManipVecEnv  # noqa: E402
 from gym_kmanip_torch.models import get_model, model_tensors  # noqa: E402
 from gym_kmanip_torch.mpc.cost import (  # noqa: E402
     CostParams, cube_pick_cost, make_ee_tracking_cost_ilqr)
@@ -149,7 +165,7 @@ from gym_kmanip_torch.ops import chol_solve_cuda, contacts_cuda, rnea_cuda  # no
 from gym_kmanip_torch.ops import kinematics as kin  # noqa: E402
 from gym_kmanip_torch.ops import linalg, sweep_floor_cuda  # noqa: E402
 from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda  # noqa: E402
-from gym_kmanip_torch.solvers import ik_host, ilqr  # noqa: E402
+from gym_kmanip_torch.solvers import ik, ik_host, ilqr, trf  # noqa: E402
 from gym_kmanip_torch.tools import exp_sweep_floor  # noqa: E402
 from gym_kmanip_torch.utils import rotations as rot  # noqa: E402
 
@@ -1727,6 +1743,281 @@ def phase_examples():
     return rows
 
 
+# ---- the vec env, its float32 device TRF and example 12's PPO ----
+
+N_VEC = 64  # example 12's N_ENVS
+
+
+def vec_actions(cfg, n, rng):
+    """Seeded uniform actions of the env's action space, (n, dim) tensors
+    on the card."""
+    sizes = {"eel_pos": 3, "eel_orn": 3, "eer_pos": 3, "eer_orn": 3, "grip_l": 1, "grip_r": 1}
+    return {a: torch.as_tensor(rng.uniform(-1, 1, (n, sizes[a])).astype(np.float32), device=DEV)
+            for a in cfg.act_list}
+
+
+def trf_stats(fn):
+    """(fn's result, {solves, trials, syncs}) of the TRF solves fn runs."""
+    before = dict(trf.counts)
+    out = fn()
+    return out, {key: v - before[key] for key, v in trf.counts.items()}
+
+
+def host_syncs(fn):
+    """(fn's result, the synchronizing CUDA calls torch reports in it)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def trf_against_host(env, states, action):
+    """The card's float32 TRF (ik_trf, as the decode runs it) against the
+    float64 native host solver on the same N problems of every arm: the
+    largest rad distance of the solutions, and the status flips among the
+    problems the host solves (in range)."""
+    cfg, model = env.cfg, env.model
+    q_home = torch.as_tensor(np.asarray(cfg.q_pos_home, np.float32), device=DEV)
+    q_home64 = np.asarray(cfg.q_pos_home, np.float32).astype(np.float64)
+    qpos = states.qpos.double().cpu().numpy()
+    dist, flips, solved = 0.0, 0, 0
+    for side in ("r", "l"):
+        if f"ee{side}_pos" not in cfg.act_list:
+            continue
+        mask = tuple(int(i) for i in getattr(cfg, f"q_id_{side}_mask"))
+        gp, go = env_task._ee_goal(model, cfg, states, action, side)
+        captured = []
+        real = trf.least_squares_trf
+        trf.least_squares_trf = lambda *a, **kw: captured.append(real(*a, **kw)) or captured[-1]
+        try:
+            q_sol, _ = ik.ik_trf(model, states.qpos, gp, go, q_home, states.qpos, q_mask=mask,
+                                 site_name=f"ee{side}_site")
+        finally:
+            trf.least_squares_trf = real
+        status = captured[0].status.cpu().numpy()
+        q_sol = q_sol.cpu().numpy()
+        gp, go = gp.double().cpu().numpy(), go.double().cpu().numpy()
+        for b in range(qpos.shape[0]):
+            want, _, st = native.solve_ik_native(qpos[b], gp[b], go[b], q_home64, qpos[b],
+                                                 model=model, q_mask=mask,
+                                                 site_name=f"ee{side}_site", return_status=True)
+            dist = max(dist, float(np.abs(want - q_sol[b]).max()))
+            if st >= 0:
+                solved += 1
+                flips += int(st != status[b])
+    return dist, flips, solved
+
+
+def svd_drivers(env, states, action):
+    """The TRF on one set of N problems with each of cuSOLVER's SVD drivers
+    that torch.linalg.svd offers: ms per solve (synchronized, after one
+    untimed solve), trials, and the largest distance from the float64 host
+    solver with the status flips."""
+    saved = trf.SVD_DRIVER
+    try:
+        for driver in (None, "gesvdj", "gesvda", "gesvd"):
+            trf.SVD_DRIVER = driver
+            trf_against_host(env, states, action)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (dist, flips, solved), stats = trf_stats(
+                lambda: trf_against_host(env, states, action))
+            ms = 1e3 * (time.perf_counter() - t0)
+            log("vec", f"SVD driver {driver or 'torch default'}: {ms:.1f} ms per solve with the "
+                       f"host check, {stats['trials']} trials, largest distance {dist:.3e} rad, "
+                       f"{flips} status flips of {solved}")
+    finally:
+        trf.SVD_DRIVER = saved
+
+
+def vec_split(env, actions):
+    """ms per vec step by stage, each ended by a synchronize: the goals (the
+    EE FK), the TRF of every arm, control_step (with the rest of the
+    decode), and obs with reward (no step of these truncates)."""
+    model, cfg = env.model, env.cfg
+    sides = [s for s in ("r", "l") if f"ee{s}_pos" in cfg.act_list]
+    q_home = torch.as_tensor(np.asarray(cfg.q_pos_home, np.float32), device=DEV)
+    split = dict(goals=0.0, trf=0.0, control_step=0.0, obs_reward=0.0)
+    states = env._states
+    for a in actions:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        goals = {s: env_task._ee_goal(model, cfg, states, a, s) for s in sides}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sols = {s: ik.ik_trf(model, states.qpos, *goals[s], q_home, states.qpos,
+                             q_mask=tuple(int(i) for i in getattr(cfg, f"q_id_{s}_mask")),
+                             site_name=f"ee{s}_site") for s in sides}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ctrl, qpos_ik, _, _ = env_task._decode_action(model, cfg, states, a, sols, goals)
+        new, aux = engine.control_step(model, states._replace(qpos=qpos_ik), ctrl,
+                                       qpos_force=states.qpos)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        env_task._reward(model, cfg, new, aux)
+        env_task._observe(model, cfg, new)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        states = new
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[key] += 1e3 * dt / len(actions)
+    return split
+
+
+def vec_run(env_id, n_steps, seed):
+    """n_steps vec steps of `env_id` at N = 64 with seeded actions: the
+    launches checked (ten K1 launches a step, no plain substep), the rate,
+    the TRF's trials and syncs; returns the stats."""
+    env = KManipVecEnv(env_id, N_VEC, seed=seed, device=DEV)
+    rng = np.random.default_rng(seed)
+    actions = [vec_actions(env.cfg, N_VEC, rng) for _ in range(n_steps)]
+    env.reset()
+    env.step(actions[0])  # first step: cuSOLVER's set-up and the cached tensors
+    env.reset()
+    reset_counts()
+    plain_substeps = Recorder(engine, "_substep_torch")
+    truncated_at = []
+    with plain_substeps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (_, stats) = trf_stats(lambda: [truncated_at.append(i + 1) if env.step(a)[3].any() else None
+                                        for i, a in enumerate(actions)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if counts() != only(K1=10 * n_steps) or plain_substeps.calls:
+        raise AssertionError(f"{env_id} vec run: launches {counts()}, plain substeps "
+                             f"{plain_substeps.calls}; expected {10 * n_steps} of K1 and none")
+    obs = env_task._observe(env.model, env.cfg, env._states)
+    if not all(bool(torch.isfinite(v).all()) for v in obs.values()):
+        raise AssertionError(f"{env_id} vec run ended non-finite")
+    expect = [t for t in range(1, n_steps + 1) if t % constants.MAX_EPISODE_STEPS == 0]
+    if truncated_at != expect:
+        raise AssertionError(f"{env_id} vec run truncated at {truncated_at}, expected {expect}")
+    per_solve = {k_: v / max(stats["solves"], 1) for k_, v in stats.items() if k_ != "solves"}
+    log("vec", f"{env_id} N={N_VEC}: {n_steps} vec steps in {seconds:.3f} s, "
+               f"{n_steps / seconds:.3f} vec steps/s, {N_VEC * n_steps / seconds:.1f} env steps/s; "
+               f"10 K1 launches and no plain substep per vec step; {stats['solves']} TRF solves, "
+               f"{per_solve['trials']:.2f} trials and {per_solve['syncs']:.2f} termination reads "
+               f"per solve; autoreset at steps {truncated_at}")
+    return env, actions, dict(vec_steps_per_s=n_steps / seconds,
+                              env_steps_per_s=N_VEC * n_steps / seconds, **per_solve)
+
+
+def phase_vec():
+    """The vec env at example 12's size (N = 64): one 64-step KManipSoloArm
+    episode and 4 steps past its autoreset, and 16 steps of KManipTorso
+    (two TRFs a step), each with ten K1 launches at K = 64 and no plain
+    substep per step; the split of a solo step; the TRF's trials, syncs
+    and launches per solve, and the card's float32 TRF against the float64
+    host solver; one vec step's ten K1 launches against the plain substep
+    at phase 2's bands, and K1's device time at K = 64; the device-busy
+    share; two PPO updates of example 12 (N = 64, T = 16)."""
+    n = constants.MAX_EPISODE_STEPS + 4
+    env, actions, solo = vec_run("KManipSoloArm", n, seed=1)
+    # one vec step's ten K1 launches against the plain substep, and K1's
+    # device time at K = 64, before the TRF's large profiles below
+    calls = iter(range(1 << 30))
+    rec = Recorder(substep_cuda, "substep_batched", key=lambda *_: next(calls))
+    with rec:
+        env.step(actions[0])
+    torch.cuda.synchronize()
+    launches = sorted(rec.by_key.items())
+    if len(launches) != 10:
+        raise AssertionError(f"vec: a step made {len(launches)} K1 launches")
+    err = max(compare_substep(f"vec K={N_VEC} launch {i}", *args[:4],
+                              [x.contiguous() for x in args[4:]])
+              for i, (_, (args, _)) in enumerate(launches))
+    args = launches[0][1][0]
+    m = args[0]
+    try:
+        profiled = kernel_device_ms(lambda: substep_cuda.substep_batched(*args),
+                                    "substep_kernel")
+        how = "profiler"
+    except AssertionError as e:  # the profiler dropped every record (PERF.md §7)
+        profiled, how = None, f"not measured: {e}"
+    events = cuda_ms(lambda: substep_cuda.substep_batched(*args), 200)
+    T, nq, nu = len(m.fingertips), m.nq, m.nu
+    b = bound(N_VEC * substep_flops(m, True),
+              N_VEC * (4 * (2 * nq + nu + 13) + 4 * (2 * nq + 13 + 7 * nq) + T))
+    device = f"{1e3 * profiled:.2f} us" if profiled is not None else "-"
+    log("K1", f"vec K={N_VEC}: device {device} per launch ({how}), CUDA events {events:.4f} ms "
+              f"(the wrapper's host time), bound {b[0]:.8f} ms ({b[1]}); 10 launches per vec "
+              f"step, the ten of one step within phase 2's bands (largest {err:.3e})")
+
+    _, _, torso = vec_run("KManipTorso", 16, seed=2)
+
+    # the card's TRF against the float64 host solver, on the problems of a
+    # reset and of a mid-episode state
+    env.reset()
+    worst = [0.0, 0, 0]
+    for a in actions[:3]:
+        d, f, s = trf_against_host(env, env._states, a)
+        worst = [max(worst[0], d), worst[1] + f, worst[2] + s]
+        env.step(a)
+    log("vec", f"TRF float32 on the card against the float64 host solver, 3 x {N_VEC} solo "
+               f"problems: largest distance {worst[0]:.3e} rad (tests/test_ik.py:200 holds 1e-3), "
+               f"{worst[1]} status flips of {worst[2]} problems")
+    if not worst[0] <= 1e-3:
+        raise AssertionError(f"vec: the card's TRF is {worst[0]:.3e} rad from the host's")
+
+    svd_drivers(env, env._states, actions[3])
+
+    # syncs and launches: per vec step and per TRF solve
+    a = actions[3]
+    _, step_syncs = host_syncs(lambda: env.step(a))
+    goals = env_task._ee_goal(env.model, env.cfg, env._states, a, "r")
+    q_home = torch.as_tensor(np.asarray(env.cfg.q_pos_home, np.float32), device=DEV)
+    mask = tuple(int(i) for i in env.cfg.q_id_r_mask)
+
+    def solve():
+        return ik.ik_trf(env.model, env._states.qpos, *goals, q_home, env._states.qpos,
+                         q_mask=mask, site_name="eer_site")
+
+    (_, stats), solve_syncs = host_syncs(lambda: trf_stats(solve))
+    _, solve_launches, _ = device_profile(solve, 1)
+    step_ms = 1e3 / solo["vec_steps_per_s"]
+    busy, step_launches, _ = device_profile(lambda: env.step(a), 1)
+    log("vec", f"per TRF solve: {stats['trials']} trials, {solve_syncs} synchronizing calls "
+               f"({stats['syncs']} termination reads), {solve_launches:.0f} device launches "
+               f"({solve_launches / max(stats['trials'], 1):.0f} per trial); per vec step: "
+               f"{step_syncs} synchronizing calls, {step_launches:.0f} launches, device busy "
+               f"{busy:.2f} ms of {step_ms:.2f} ({busy / step_ms:.1%})")
+    split = vec_split(env, actions[4:12])
+    log("vec", "split of a solo vec step (8 steps, synchronized, ms): " + ", ".join(
+        f"{key} {v:.2f}" for key, v in split.items()))
+
+    # example 12: two PPO updates at N = 64, T = 16
+    ex12 = importlib.import_module("gym_kmanip_torch.examples.12_train_vec_rl")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy, rewards = ex12.train(env_id="KManipSoloArm", n_updates=2, n_envs=N_VEC,
+                                 t_rollout=ex12.T_ROLLOUT, seed=0, log=lambda *_: None,
+                                 device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_steps = 2 * ex12.T_ROLLOUT
+    if counts() != only(K1=10 * n_steps):
+        raise AssertionError(f"example 12: launches {counts()}, expected {10 * n_steps} of K1")
+    if not (all(np.isfinite(rewards)) and all(bool(torch.isfinite(p).all())
+                                              for p in policy.parameters())):
+        raise AssertionError(f"example 12: rewards {rewards}")
+    log("vec", f"example 12: 2 PPO updates (N={N_VEC}, T={ex12.T_ROLLOUT}, "
+               f"{ex12.PPO_EPOCHS} epochs) in {seconds:.2f} s, {2 / seconds:.4f} updates/s; mean "
+               f"rewards {rewards[0]:.4f}, {rewards[1]:.4f}")
+    return dict(K=N_VEC, launches_per_vec_step=10, max_abs_err=err, profiled_ms=profiled,
+                ms=events, bound_ms=b[0], bound_by=b[1], env_steps_per_s=solo["env_steps_per_s"],
+                torso_env_steps_per_s=torso["env_steps_per_s"],
+                trf_trials_per_solve=solo["trials"], trf_max_rad=worst[0],
+                trf_status_flips=worst[1], ppo_updates_per_s=2 / seconds)
+
+
 def strip(r):
     """A nested row for the kernels line: its bound as bound_ms and
     bound_by, nothing else that is not a number, a string or a row."""
@@ -1809,6 +2100,11 @@ def main():
     no_staged_launch("the env, lqr, oracle and examples phases")
     log("done", f"the env, lqr, oracle and examples phases took "
                 f"{time.perf_counter() - t_new:.1f} s")
+    t_vec = time.perf_counter()
+    k1["vec"] = phase_vec()
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1["vec"]["max_abs_err"])
+    no_staged_launch("the vec phase")
+    log("done", f"the vec phase took {time.perf_counter() - t_vec:.1f} s")
 
     rows = [
         ("substep_batched", "substep.cu", "gym_kmanip_tpu/ops/pallas_substep.py:404", k1),
@@ -1837,7 +2133,7 @@ def main():
     # per launch that the profiler read on the staged route and in the iLQR
     # solve (profiled_ms), and on phase 8's inputs (device_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("ilqr", "env", "examples", "torso", "n20", "variants", "k4_ms", "profiled_ms",
+    extra = ("ilqr", "env", "vec", "examples", "torso", "n20", "variants", "k4_ms", "profiled_ms",
              "profiled_ms_k1500", "device_ms", "teams", "alternates")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -53,6 +53,8 @@ IK_RES_REG_PREV: float = 6e-3
 IK_RES_REG_HOME: float = 2e-6
 IK_JAC_RAD: float = 0.02
 IK_JAC_REG: float = 9e-3
+# iterations of the fixed-budget Levenberg-Marquardt IK (solvers/ik.ik)
+IK_MAX_ITERS: int = 12
 
 # Gym space dtypes
 OBS_DTYPE: np.dtype = np.float64

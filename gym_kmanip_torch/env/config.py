@@ -30,8 +30,8 @@ class EnvConfig:
     max_episode_steps: int = k.MAX_EPISODE_STEPS
     # EE-delta IK precision. True (every KManip* env): the float64 host TRF
     # (solvers/ik_host), whose scipy tolerances sit below the float32
-    # epsilon. False: the float32 device TRF, which the port does not have
-    # yet (env/task.make_task raises).
+    # epsilon. False: the float32 device TRF (solvers/ik.ik_trf) inside the
+    # step, as the vec env (env/vec_env.py) runs it.
     ik_host64: bool = True
 
 

@@ -11,7 +11,13 @@ computed on the device in float32 and copied to the host once, solved in
 float64 on the host by `solvers/ik_host.solve_host` (the native C++ solver
 when it is built), and the solutions are injected into the step core,
 which runs `engine.control_step(..., qpos_force=qpos_pre)`. On the card the
-control step is ten launches of the substep kernel.
+control step is ten launches of the substep kernel. A config with
+`ik_host64=False` solves the IK inside the decode instead, with the
+float32 device TRF (`solvers/ik.ik_trf`), as the vec env does.
+
+`_ee_goal`, `_decode_action`, `_observe` and `_reward` take any leading
+batch dimensions on the state and the action: the single env runs them
+unbatched, the vec env (env/vec_env.py) on (N, ...).
 """
 
 from types import SimpleNamespace
@@ -26,6 +32,7 @@ from gym_kmanip_torch.dynamics.state import SimState, StepAux, init_state
 from gym_kmanip_torch.models import canonical_device, get_model, model_tensors
 from gym_kmanip_torch.models.spec import RobotModel
 from gym_kmanip_torch.ops import kinematics as kin
+from gym_kmanip_torch.solvers.ik import ik_trf, mask_index
 from gym_kmanip_torch.solvers.ik_host import solve_host
 from gym_kmanip_torch.utils import rotations as rot
 
@@ -40,9 +47,9 @@ CONTACT_REWARD_ENABLED: bool = True
 class TaskOut(NamedTuple):
     state: SimState
     obs: Dict[str, torch.Tensor]
-    reward: torch.Tensor  # ()
-    mocap_pos: torch.Tensor  # (n_mocap, 3) decoded EE goals
-    mocap_quat: torch.Tensor  # (n_mocap, 4)
+    reward: torch.Tensor  # (...)
+    mocap_pos: torch.Tensor  # (..., n_mocap, 3) decoded EE goals
+    mocap_quat: torch.Tensor  # (..., n_mocap, 4)
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -73,7 +80,9 @@ def _decode_action(model: RobotModel, cfg, state: SimState, action: Dict[str, to
     `ik_solutions` {"r"/"l": (q_sol, q_scribble)} are the host IK's
     solutions (make_task's split pipeline), and `goals` {"r"/"l":
     (goal_pos, goal_orn)} the device goals they were solved for, which the
-    decode then does not compute again (None: computed here). The returned
+    decode then does not compute again (None: computed here). Without
+    `ik_solutions` the float32 device TRF solves each arm here, over the
+    state's batch. The returned
     qpos is the reference's behaviour: its IK scribbles every candidate q
     into the live qpos and never restores it, so its physics integrates
     from the last IK evaluation; the masked arm joints are TELEPORTED to it each control
@@ -81,18 +90,20 @@ def _decode_action(model: RobotModel, cfg, state: SimState, action: Dict[str, to
     this qpos with the pre-step qvel."""
     qpos = state.qpos
     dev = qpos.device
+    batch = qpos.shape[:-1]
     qpos_out = qpos.clone()
     ctrl = state.ctrl.clone()
-    mocap_pos = _f32(model.mocap_pos0, dev)
-    mocap_quat = _f32(model.mocap_quat0, dev)
+    mocap_pos = _f32(model.mocap_pos0, dev).expand(batch + model.mocap_pos0.shape).clone()
+    mocap_quat = _f32(model.mocap_quat0, dev).expand(batch + model.mocap_quat0.shape).clone()
 
     for side in ("r", "l"):
         if f"grip_{side}" in cfg.act_list:
             gid = [int(i) for i in getattr(cfg, f"ctrl_id_{side}_grip")]
             # quirk parity: the reference indexes qpos with the *ctrl* id
             # (actuator i drives joint i, so the two agree)
-            grip = action[f"grip_{side}"][0] * k.EE_S_DELTA + qpos[gid[0]]
-            ctrl[gid] = torch.clamp(grip, k.EE_S_MIN, k.EE_S_MAX)
+            grip = action[f"grip_{side}"][..., 0] * k.EE_S_DELTA + qpos[..., gid[0]]
+            grip = torch.clamp(grip, k.EE_S_MIN, k.EE_S_MAX)[..., None]
+            ctrl.index_copy_(-1, mask_index(tuple(gid), dev), grip.expand(batch + (len(gid),)))
 
     for side, mocap_id, mask_ids in (("r", k.MOCAP_ID_R, cfg.q_id_r_mask),
                                      ("l", k.MOCAP_ID_L, cfg.q_id_l_mask)):
@@ -100,21 +111,24 @@ def _decode_action(model: RobotModel, cfg, state: SimState, action: Dict[str, to
             continue
         goal_pos, goal_orn = (goals[side] if goals is not None
                               else _ee_goal(model, cfg, state, action, side))
-        mocap_pos[mocap_id] = goal_pos
-        mocap_quat[mocap_id] = goal_orn
+        mocap_pos[..., mocap_id, :] = goal_pos
+        mocap_quat[..., mocap_id, :] = goal_orn
+        mask = tuple(int(i) for i in mask_ids)
         if ik_solutions is None:
-            raise NotImplementedError(
-                "EE actions without host IK solutions need the float32 device TRF "
-                "(solvers/trf.py), which is not ported yet: ROADMAP.md Queue 1 item 5")
-        q_sol, q_scrib = ik_solutions[side]
-        mask = [int(i) for i in mask_ids]
-        ctrl[mask] = q_sol
-        qpos_out[mask] = q_scrib
+            q_sol, q_scrib = ik_trf(model, qpos, goal_pos, goal_orn,
+                                    _f32(cfg.q_pos_home, dev), qpos, q_mask=mask,
+                                    site_name=f"ee{side}_site")
+        else:
+            q_sol, q_scrib = ik_solutions[side]
+        idx = mask_index(mask, dev)
+        ctrl.index_copy_(-1, idx, q_sol)
+        qpos_out.index_copy_(-1, idx, q_scrib)
 
     for side in ("r", "l"):
         if f"q_pos_{side}" in cfg.act_list:
-            mask = [int(i) for i in getattr(cfg, f"q_id_{side}_mask")]
-            ctrl[mask] = qpos[mask] + action[f"q_pos_{side}"] * k.Q_POS_DELTA
+            idx = mask_index(tuple(int(i) for i in getattr(cfg, f"q_id_{side}_mask")), dev)
+            ctrl.index_copy_(-1, idx, torch.index_select(qpos, -1, idx)
+                             + action[f"q_pos_{side}"] * k.Q_POS_DELTA)
 
     # exponential ctrl filter (CTRL_ALPHA = 1: passthrough)
     ctrl = k.CTRL_ALPHA * ctrl + (1 - k.CTRL_ALPHA) * state.ctrl
@@ -141,12 +155,12 @@ def _observe(model: RobotModel, cfg, state: SimState) -> Dict[str, torch.Tensor]
 
 def _reward(model: RobotModel, cfg, state: SimState, aux: StepAux) -> torch.Tensor:
     """get_reward."""
-    qvel_full = torch.cat([state.qvel, state.cube_linvel, state.cube_angvel])
-    r = -k.REWARD_VEL_PENALTY * torch.linalg.vector_norm(qvel_full)
+    qvel_full = torch.cat([state.qvel, state.cube_linvel, state.cube_angvel], dim=-1)
+    r = -k.REWARD_VEL_PENALTY * torch.linalg.vector_norm(qvel_full, dim=-1)
     for side in ("l", "r"):
         if f"grip_{side}" in cfg.act_list:
             i = model.site_index(f"ee{side}_site")
-            dist = torch.linalg.vector_norm(state.cube_pos - aux.site_pos[i])
+            dist = torch.linalg.vector_norm(state.cube_pos - aux.site_pos[..., i, :], dim=-1)
             r = r + k.REWARD_GRIP_DIST / (dist + k.EPSILON)
     if CONTACT_REWARD_ENABLED:
         touched = aux.touch_r | aux.touch_l
@@ -163,14 +177,12 @@ def make_task(cfg, device="cuda"):
     `cube_pos` (host floats; the backend samples it). step_fn(state,
     action) -> TaskOut, `action` a dict of float32 tensors on the device.
     `step_fn.parts` holds the pipeline's stages (goals, ik, core) for
-    callers that time them."""
+    callers that time them; with no host IK (the *QPos ids, and
+    `ik_host64=False`, whose device TRF runs inside the core) goals and ik
+    are None."""
     device = canonical_device(device)
     model = get_model(cfg.mjcf_filename)
     ee_sides = [s for s in ("r", "l") if f"ee{s}_pos" in cfg.act_list]
-    if ee_sides and not cfg.ik_host64:
-        raise NotImplementedError(
-            "ik_host64=False runs the float32 device TRF (solvers/trf.py), which is not "
-            "ported yet: ROADMAP.md Queue 1 item 5")
 
     def reset_fn(cube_pos) -> TaskOut:
         state = init_state(model, cube_pos=np.asarray(cube_pos), device=device)
@@ -194,7 +206,7 @@ def make_task(cfg, device="cuda"):
         return TaskOut(state, _observe(model, cfg, state), _reward(model, cfg, state, aux),
                        mocap_pos, mocap_quat)
 
-    if not ee_sides:  # the *QPos ids: no IK, one pass on the device
+    if not (ee_sides and cfg.ik_host64):  # one pass on the device
         def step_fn(state: SimState, action) -> TaskOut:
             return step_core(state, action)
 

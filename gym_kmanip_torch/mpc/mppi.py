@@ -119,8 +119,9 @@ def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
 
     `cost_fn(state, aux, ctrl) -> (K,)` is the running cost. With no `eps`
     the noise is drawn from `mppi_state.generator`, which advances in
-    place; `eps` (K, H, nu) injects the noise instead, for a one-iteration
-    solve (slot 0 is zeroed either way). `substep_fn` is the physics
+    place; `eps` injects the noise instead: (n_iters, K, H, nu), one draw
+    per iteration, or (K, H, nu) for a one-iteration solve (slot 0 is
+    zeroed either way). `substep_fn` is the physics
     substep the rollouts call (default: `engine.substep`). `score_all`
     optionally replaces the rollout scoring pass with a fused
     `(cand (K, H, nu), sim_state) -> (K,)` that computes the same totals
@@ -134,17 +135,20 @@ def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
     if sigma is None:  # built once per (model, sigma, device)
         sigma = torch.as_tensor(sigma_per_actuator(model, cfg.sigma), device=device)
         model.cache[key] = sigma
-    if eps is not None and (cfg.n_iters != 1 or tuple(eps.shape) != (K, H, nu)):
-        raise ValueError(
-            f"eps of shape {tuple(eps.shape)} with n_iters={cfg.n_iters}: "
-            f"injected noise is ({K}, {H}, {nu}) for one iteration"
-        )
+    if eps is not None:
+        if eps.dim() == 3:
+            eps = eps[None]
+        if tuple(eps.shape) != (cfg.n_iters, K, H, nu):
+            raise ValueError(
+                f"eps of shape {tuple(eps.shape)} with n_iters={cfg.n_iters}: injected noise "
+                f"is ({cfg.n_iters}, {K}, {H}, {nu}), or ({K}, {H}, {nu}) for one iteration"
+            )
 
     nominal = proposal = mppi_state.nominal
     best_cost = None
-    for _ in range(cfg.n_iters):
+    for it in range(cfg.n_iters):
         e = (sample_noise(mppi_state.generator, K, H, nu, sigma, cfg.noise_beta)
-             if eps is None else eps)
+             if eps is None else eps[it])
         e = torch.cat([torch.zeros_like(e[:1]), e[1:]])  # the nominal competes
         cand = torch.clamp(nominal[None] + e, lo, hi)  # (K, H, nu)
         # slot 1 scores the previous iteration's weighted average

@@ -19,7 +19,7 @@ import ctypes
 import hashlib
 import os
 import threading
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
@@ -116,13 +116,15 @@ def _c32i(a):
 
 
 def solve_ik_native(qpos_full, goal_pos, goal_orn, q_home_full, q_prev_full, *,
-                    model, q_mask, site_name, ftol=1e-8, xtol=1e-8, gtol=1e-8
-                    ) -> Tuple[np.ndarray, np.ndarray]:
+                    model, q_mask, site_name, ftol=1e-8, xtol=1e-8, gtol=1e-8,
+                    return_status=False):
     """`ik_host._solve_np` backed by the C++ solver: the same (q_sol,
     q_scribble) float32 outputs. An out-of-bounds warm start short-circuits
     (scipy raises before evaluating; the reference keeps the warm start),
     a non-finite result falls back to the warm start, and the solution is
-    clipped to the joint range."""
+    clipped to the joint range. `return_status` appends the TRF's
+    termination status (scipy's: 0 max_nfev, 1 gtol, 2 ftol, 3 xtol, 4
+    both; -1 for an out-of-range warm start, which is not solved)."""
     lib = _load()
     if lib is None:
         raise RuntimeError(f"the native IK is unavailable: {_load_error}")
@@ -132,7 +134,8 @@ def solve_ik_native(qpos_full, goal_pos, goal_orn, q_home_full, q_prev_full, *,
     hi = np.asarray(model.jnt_range[mask, 1], np.float64)
     q0 = qpos_full[mask]
     if np.any((q0 < lo) | (q0 > hi)):
-        return (np.clip(q0, lo, hi).astype(np.float32), q0.astype(np.float32))
+        out = (np.clip(q0, lo, hi).astype(np.float32), q0.astype(np.float32))
+        return out + (-1,) if return_status else out
 
     site = model.site(site_name)
     n = len(mask)
@@ -170,4 +173,5 @@ def solve_ik_native(qpos_full, goal_pos, goal_orn, q_home_full, q_prev_full, *,
         x_out = q0
     if np.any(~np.isfinite(x_last)):
         x_last = q0
-    return (np.clip(x_out, lo, hi).astype(np.float32), x_last.astype(np.float32))
+    out = (np.clip(x_out, lo, hi).astype(np.float32), x_last.astype(np.float32))
+    return out + (int(status),) if return_status else out

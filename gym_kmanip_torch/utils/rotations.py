@@ -62,6 +62,31 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Log map: unit quaternion -> rotation vector (angle * axis), the angle
+    wrapped to (-pi, pi]; near the identity angle/|v| -> 2/w (the JAX
+    version's branches)."""
+    w = q[..., 0]
+    v = q[..., 1:]
+    sq = torch.sum(v * v, dim=-1)
+    small = sq < 1e-14
+    vn = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    angle = 2.0 * torch.atan2(vn, w)
+    angle = torch.where(angle > torch.pi, angle - 2 * torch.pi, angle)
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=_EPS), angle / vn)
+    return v * scale[..., None]
+
+
+def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """3D velocity v with qb ⊗ exp(v/2) = qa, in qb's local frame (MuJoCo's
+    mju_subQuat)."""
+    return quat_log(quat_mul(quat_conj(qb), qa))
+
+
 def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
     """Integrate unit quaternion by world-frame angular velocity omega*dt.
 

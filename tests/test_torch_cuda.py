@@ -581,3 +581,80 @@ def test_control_step_qpos_force_matches_cpu_on_cuda(cuda, name):
                                atol=1e-5, rtol=0)
     for f in ("touch_r", "touch_l", "touch_table"):
         assert bool(getattr(aux, f)) == bool(getattr(want_aux, f)), f
+
+
+def test_vec_step_on_k1_matches_plain_on_cuda(cuda):
+    """One vec step of KManipSoloArm at N = 64 on the card: ten K1 launches
+    at K = 64 and no plain substep; each launch's inputs through the plain
+    substep match the kernel at the substep tolerances, touch flags exact."""
+    from gym_kmanip_torch.dynamics import engine
+    from gym_kmanip_torch.env.vec_env import KManipVecEnv
+
+    env = KManipVecEnv("KManipSoloArm", 64, seed=0, device=cuda)
+    env.reset()
+    rng = np.random.default_rng(1)
+    sizes = {"eer_pos": 3, "eer_orn": 3, "grip_r": 1}
+    action = {a: torch.as_tensor(rng.uniform(-1, 1, (64, d)).astype(np.float32), device=cuda)
+              for a, d in sizes.items()}
+    env.step(action)
+    real, plain = substep_cuda.substep_batched, engine._substep_torch
+    launches, plain_calls = [], []
+
+    def recording(*args):
+        launches.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real(*args)
+
+    # the wrapper counts its launches on its module's name, this stand-in
+    recording.launches = real.launches
+    substep_cuda.substep_batched = recording
+    engine._substep_torch = lambda *a, **kw: plain_calls.append(1) or plain(*a, **kw)
+    try:
+        env.step(action)
+    finally:
+        substep_cuda.substep_batched, engine._substep_torch = real, plain
+    assert len(launches) == 10 and not plain_calls
+    for args in launches:
+        assert args[4].shape == (64, 10)
+        got = real(*args)
+        want = substep_cuda.substep_batched_reference(*args)
+        torch.cuda.synchronize()
+        for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-4, None, 1e-5, 1e-5)):
+            if tol is None:
+                assert torch.equal(g, w)
+            else:
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol, rtol=0)
+
+
+def test_device_trf_matches_host_float64_on_cuda(cuda):
+    """The float32 TRF on the card (ik_trf) against the float64 host solver
+    on 64 solo problems from the home pose: within 1e-3 rad
+    (tests/test_ik.py:200). One item alone against its row of the batch:
+    the CPU holds them equal (tests/test_torch_trf.py); on the card the
+    batched and the single SVD and reductions round apart (measured 1.0e-7
+    rad), held at 1e-5."""
+    from gym_kmanip_torch import constants as k
+    from gym_kmanip_torch.solvers import ik, ik_host
+
+    m = get_model("solo_arm")
+    mask = tuple(int(i) for i in k.Q_ID_R_MASK_SOLO)
+    home = np.asarray(m.home_qpos, np.float64)
+    xpos, xquat, _ = ik_host.fk_np(m, home)
+    p0, quat0 = ik_host.site_pose_np(m, xpos, xquat, "eer_site")
+    rng = np.random.default_rng(3)
+    qpos = np.repeat(home[None], 64, 0)
+    qpos[:, list(mask)] += rng.uniform(-0.2, 0.2, (64, len(mask)))
+    goals = p0 + rng.uniform(-1, 1, (64, 3)) * k.EE_POS_DELTA
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    args = (f32(qpos), f32(goals), f32(quat0).expand(64, 4), f32(home), f32(qpos))
+    q_sol, q_scrib = ik.ik_trf(m, *args, q_mask=mask, site_name="eer_site")
+    q_sol = q_sol.cpu().numpy()
+    for b in range(64):
+        q32 = np.asarray(qpos[b], np.float32).astype(np.float64)
+        want, _ = ik_host.solve_host(q32, np.asarray(goals[b], np.float32).astype(np.float64),
+                                     np.asarray(quat0, np.float32).astype(np.float64),
+                                     np.asarray(home, np.float32).astype(np.float64), q32,
+                                     model=m, q_mask=mask, site_name="eer_site")
+        np.testing.assert_allclose(q_sol[b], want, atol=1e-3, rtol=0, err_msg=str(b))
+    alone = ik.ik_trf(m, *(a[5] if a.dim() > 1 else a for a in args), q_mask=mask,
+                      site_name="eer_site")
+    np.testing.assert_allclose(alone[0].cpu().numpy(), q_sol[5], atol=1e-5, rtol=0)

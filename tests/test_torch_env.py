@@ -272,11 +272,62 @@ def test_constants_and_configs_match_jax():
 
 
 def test_unported_options_raise():
-    cfg = dataclasses.replace(config.CONFIGS["KManipSoloArm"], ik_host64=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        make_task(cfg, device="cpu")
-    make_task(dataclasses.replace(config.CONFIGS["KManipSoloArmQPos"], ik_host64=False),
-              device="cpu")
+    """Camera observations and k_render (the vision slice, Queue 1 item 6)
+    still raise; ik_host64=False (item 5) no longer does."""
+    import types
+
+    from gym_kmanip_torch.env.env_sim import KManipEnvSim
+    from gym_kmanip_torch.env.vec_env import KManipVecEnv
+
+    cfg = config.CONFIGS["KManipSoloArmVision"]
+    shell = types.SimpleNamespace(cfg=cfg, obs_list=list(cfg.obs_list), cameras=["head"],
+                                  np_random=np.random.default_rng(0))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        KManipEnvSim(shell, device="cpu")
+    shell = types.SimpleNamespace(cfg=config.CONFIGS["KManipSoloArm"], cameras=[],
+                                  obs_list=list(config.CONFIGS["KManipSoloArm"].obs_list),
+                                  np_random=np.random.default_rng(0))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        KManipEnvSim(shell, device="cpu").k_render("head")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        KManipVecEnv("KManipSoloArmVision", num_envs=2, device="cpu")
+    for env_id in ("KManipSoloArm", "KManipSoloArmQPos"):
+        make_task(dataclasses.replace(config.CONFIGS[env_id], ik_host64=False), device="cpu")
+
+
+@pytest.mark.parametrize("env_id", ["KManipSoloArm", "KManipDualArm", "KManipTorso"])
+def test_ee_ids_step_with_the_device_trf(env_id, monkeypatch):
+    """make_task(ik_host64=False) on the EE ids: the decode solves each arm
+    with the float32 device TRF. One step from the home state: finite, the
+    host solver never called, and the arm's ctrl within 1e-3 rad of the
+    float64 host solve of the same problem (tests/test_ik.py:200), or the
+    clipped warm start where that is out of range (the torso's home)."""
+    cfg = dataclasses.replace(config.CONFIGS[env_id], ik_host64=False)
+    reset_fn, step_fn, m = make_task(cfg, device="cpu")
+    assert step_fn.parts.goals is None and step_fn.parts.ik is None
+    state = reset_fn(np.array([0.2, 0.6, 0.62], np.float32)).state
+    sizes = {"eel_pos": 3, "eel_orn": 3, "eer_pos": 3, "eer_orn": 3, "grip_l": 1, "grip_r": 1}
+    rng = np.random.default_rng(0)
+    action = {a: torch.as_tensor(rng.uniform(-1, 1, sizes[a]).astype(np.float32))
+              for a in cfg.act_list}
+    from gym_kmanip_torch.env import task
+
+    calls = []
+    monkeypatch.setattr(task, "solve_host", lambda *a, **kw: calls.append(1))
+    out = step_fn(state, action)
+    monkeypatch.undo()
+    assert not calls
+    assert bool(torch.isfinite(out.reward)) and bool(torch.isfinite(out.state.qpos).all())
+    q_home = np.asarray(cfg.q_pos_home, np.float32).astype(np.float64)
+    qpos = state.qpos.double().numpy()
+    for side in ("r", "l"):
+        if f"ee{side}_pos" not in cfg.act_list:
+            continue
+        mask = tuple(int(i) for i in getattr(cfg, f"q_id_{side}_mask"))
+        gp, go = _ee_goal(m, cfg, state, action, side)
+        want, _ = ik_host.solve_host(qpos, gp.double().numpy(), go.double().numpy(), q_home,
+                                     qpos, model=m, q_mask=mask, site_name=f"ee{side}_site")
+        np.testing.assert_allclose(out.state.ctrl[list(mask)].numpy(), want, atol=1e-3, rtol=0)
 
 
 @pytest.fixture(scope="module")
