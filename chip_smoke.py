@@ -122,6 +122,30 @@ Phases (any failure raises, and the script exits non-zero):
                   ten K1 launches against the plain substep at phase 2's
                   bands, K1's device time at K = 64; two PPO updates of
                   example 12 (N = 64, T = 16), updates/s.
+ 15. vision:      the vision serving path, each line with the card's name
+                  and power limit: every camera of the three Vision robots
+                  rendered at its Cam spec size on the card and on the CPU
+                  from one seeded state (one level on 99.5% of the pixels,
+                  std > 0, the sky's pixel counts within 0.5%; ms per frame);
+                  a 32-step KManipSoloArmVision episode and 16 steps each of
+                  KManipDualArmVision and KManipTorsoVision through
+                  KManipEnvSim (the backend gym.make's env steps; gymnasium
+                  is not needed), ten K1 launches a step and no plain
+                  substep, steps/s, render ms by camera, one step's ten K1
+                  launches against the plain substep at phase 2's bands; the
+                  vec env KManipSoloArmVision at N = 64, render_hw (32, 32),
+                  16 steps, its split (goals, TRF, control_step, render, obs
+                  and reward, the rest); the vision MPPI solve at example
+                  10's shape (H = 10, K = 64, top camera 48 x 64, CostCNN
+                  weights drawn in flax's layout and carried on the card):
+                  H K1 launches a solve, solves/s, renders + CNN evaluations
+                  per s, J against the plain substep's on one injected draw
+                  (1e-4 of |J|); all four zoo artifacts loaded, and
+                  bc_pixels_solo and bc_pick_solo closed loop on
+                  control_step for 120 steps (control steps/s, tip-cube
+                  distance, the card's controls against the CPU's at 1e-3
+                  and 1e-4 of the ctrl range); one PPO update of example 12
+                  --vision at N = 64, T = 16.
 Only the staged route moves the K5, K6 and K7 counters: every other phase,
 and every plain-version call, leaves them as they were.
 The kernels line, then the card's name and power limit (nvidia-smi), then
@@ -147,7 +171,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-from gym_kmanip_torch import constants, native  # noqa: E402
+from gym_kmanip_torch import constants, native, zoo  # noqa: E402
 from gym_kmanip_torch.dynamics import contacts, engine  # noqa: E402
 from gym_kmanip_torch.dynamics.state import SimState, init_state  # noqa: E402
 from gym_kmanip_torch.env import config as env_config  # noqa: E402
@@ -159,6 +183,7 @@ from gym_kmanip_torch.mpc.cost import (  # noqa: E402
     CostParams, cube_pick_cost, make_ee_tracking_cost_ilqr)
 from gym_kmanip_torch.mpc.mppi import (  # noqa: E402
     MPPIConfig, init_mppi, make_fused_pick_solver, make_mppi_solver)
+from gym_kmanip_torch.mpc import vision_cost  # noqa: E402
 from gym_kmanip_torch.mpc.rollout import rollout  # noqa: E402
 from gym_kmanip_torch.ops import _build, riccati_cuda, rollout_feedback_cuda  # noqa: E402
 from gym_kmanip_torch.ops import chol_solve_cuda, contacts_cuda, rnea_cuda  # noqa: E402
@@ -166,8 +191,12 @@ from gym_kmanip_torch.ops import kinematics as kin  # noqa: E402
 from gym_kmanip_torch.ops import linalg, sweep_floor_cuda  # noqa: E402
 from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda  # noqa: E402
 from gym_kmanip_torch.solvers import ik, ik_host, ilqr, trf  # noqa: E402
+from gym_kmanip_torch.render import raycast  # noqa: E402
 from gym_kmanip_torch.tools import exp_sweep_floor  # noqa: E402
 from gym_kmanip_torch.utils import rotations as rot  # noqa: E402
+from gym_kmanip_torch.utils.flax_layers import same_side  # noqa: E402
+
+ex12 = importlib.import_module("gym_kmanip_torch.examples.12_train_vec_rl")
 
 DEV = torch.device("cuda", 0)
 K, H = 256, 50
@@ -2018,6 +2047,354 @@ def phase_vec():
                 trf_status_flips=worst[1], ppo_updates_per_s=2 / seconds)
 
 
+# ---- the vision serving path: the raycaster, the Vision ids, the vision
+# cost in MPPI, the zoo's policies (phase 15) ----
+
+VISION_EPISODES = {"KManipSoloArmVision": 32, "KManipDualArmVision": 16,
+                   "KManipTorsoVision": 16}
+VISION_VEC_STEPS = 16
+# example 10's solve (gym_kmanip_tpu/examples/10_vision_mpc.py:23-47)
+VISION_MPPI = MPPIConfig(horizon=10, n_samples=64, n_iters=1, noise_beta=0.9)
+VISION_MPPI_HW = (48, 64)
+VISION_MPPI_SOLVES = 20
+ZOO_STEPS = 120
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
+def vision_renders(card):
+    """Every camera of the three Vision robots at its Cam spec size, on the
+    card and on the CPU, from one seeded state each: at most one level apart
+    on at least 99.5% of the pixels, a real render (std > 0), the sky's
+    pixel counts within 0.5%; ms per frame on the card."""
+    sky = np.clip(raycast._SKY * 255.0, 0, 255).astype(np.uint8)
+    rng = np.random.default_rng(15)
+    frame_ms, worst = {}, 1.0
+    for env_id in VISION_EPISODES:
+        model = get_model(env_config.CONFIGS[env_id].mjcf_filename)
+        cube = rng.uniform(constants.CUBE_SPAWN_RANGE[:, 0], constants.CUBE_SPAWN_RANGE[:, 1])
+        s = init_state(model, cube_pos=cube, device="cpu")
+        s = s._replace(qpos=s.qpos + torch.as_tensor(rng.uniform(-0.2, 0.2, model.nq),
+                                                     dtype=torch.float32))
+        args = (s.qpos, s.cube_pos, s.cube_quat)
+        on_card = tuple(a.to(DEV) for a in args)
+        for cam in model.cameras:
+            spec = constants.CAMERAS[cam.name]
+            want = raycast.render_camera(model, cam.name, *args, spec.h, spec.w).numpy()
+            got = raycast.render_camera(model, cam.name, *on_card, spec.h, spec.w).cpu().numpy()
+            diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(axis=-1)
+            within, differ = float((diff <= 1).mean()), float((diff > 0).mean())
+            n_sky, n_sky_cpu = int(np.all(got == sky, -1).sum()), int(np.all(want == sky, -1).sum())
+            ms = cuda_ms(lambda: raycast.render_camera(model, cam.name, *on_card, spec.h, spec.w),
+                         10)
+            frame_ms[f"{model.name}/{cam.name}"] = ms
+            worst = min(worst, within)
+            if cam.name == "head":
+                busy, n_launch, _ = device_profile(
+                    lambda: raycast.render_camera(model, cam.name, *on_card, spec.h, spec.w), 3)
+                log("vision", f"{model.name} head frame: device busy {busy:.3f} ms of {ms:.3f}, "
+                              f"{n_launch:.0f} launches a frame (profiler) [{card}]")
+            log("vision", f"{model.name} {cam.name} {spec.h}x{spec.w}: {ms:.3f} ms per frame on "
+                          f"the card (CUDA events); {differ:.4%} of pixels differ from the CPU's, "
+                          f"{within:.4%} within one level; sky pixels {n_sky} (CPU {n_sky_cpu}) "
+                          f"[{card}]")
+            if not (within >= 0.995 and got.std() > 0
+                    and abs(n_sky - n_sky_cpu) <= max(0.005 * n_sky_cpu, 1)):
+                raise AssertionError(f"vision: {model.name} {cam.name} on the card is not the "
+                                     f"CPU's frame ({within:.4%} within one level, sky "
+                                     f"{n_sky} against {n_sky_cpu})")
+    return frame_ms, worst
+
+
+def vision_shell(env_id, seed):
+    """The Gym shell's view that KManipEnvSim reads (gymnasium is not
+    needed: the backend is what gym.make's env steps)."""
+    cfg = env_config.CONFIGS[env_id]
+    return types.SimpleNamespace(
+        cfg=cfg, obs_list=list(cfg.obs_list), np_random=np.random.default_rng(seed),
+        cameras=[constants.CAMERAS[o.split("/")[-1]] for o in cfg.obs_list if "camera" in o])
+
+
+def vision_episode(env_id, n, card):
+    """An n-step episode of a Vision id through KManipEnvSim with seeded
+    actions: ten K1 launches a step and no plain substep, in-space frames;
+    steps/s, the render's ms per step by camera, and one step's ten K1
+    launches against the plain substep."""
+    shell = vision_shell(env_id, 0)
+    sim = env_sim.KManipEnvSim(shell, device=DEV)
+    actions = random_actions(shell.cfg, n, seed=1)
+    sim.k_reset()
+    sim.k_step(actions[0])
+    sim.k_reset()
+    reset_counts()
+    plain_substeps = Recorder(engine, "_substep_torch")
+    with plain_substeps:
+        t0 = time.perf_counter()
+        for a in actions:
+            _, reward, _, obs, _ = sim.k_step(a)
+        seconds = time.perf_counter() - t0
+    if counts() != only(K1=10 * n) or plain_substeps.calls:
+        raise AssertionError(f"{env_id}: launches {counts()}, plain substeps "
+                             f"{plain_substeps.calls}; expected {10 * n} of K1 and none")
+    for cam in shell.cameras:
+        img = obs[cam.log_name]
+        if not (img.dtype == np.uint8 and img.shape == (cam.h, cam.w, 3) and img.std() > 0):
+            raise AssertionError(f"{env_id}: {cam.log_name} {img.dtype} {img.shape}")
+    if not np.isfinite(reward):
+        raise AssertionError(f"{env_id}: reward {reward}")
+    s = sim.state
+    render_ms = {cam.name: cuda_ms(lambda: sim.render_fns[cam.name](s.qpos, s.cube_pos,
+                                                                      s.cube_quat), 10)
+                 for cam in shell.cameras}
+    calls = iter(range(1 << 30))
+    rec = Recorder(substep_cuda, "substep_batched", key=lambda *_: next(calls))
+    with rec:
+        sim.k_step(actions[0])
+    launches = sorted(rec.by_key.items())
+    if len(launches) != 10:
+        raise AssertionError(f"{env_id}: a step made {len(launches)} K1 launches")
+    err = max(compare_substep(f"{env_id} step launch {i}", *args[:4],
+                              [x.contiguous() for x in args[4:]])
+              for i, (_, (args, _)) in enumerate(launches))
+    log("vision", f"{env_id}: {n} steps through KManipEnvSim in {seconds:.3f} s, "
+                  f"{n / seconds:.2f} steps/s; 10 K1 launches and no plain substep per step; "
+                  f"render ms per step (CUDA events) " + ", ".join(
+                      f"{c} {v:.3f}" for c, v in render_ms.items())
+                  + f"; one step's ten K1 launches within phase 2's bands (largest {err:.3e}) "
+                  f"[{card}]")
+    return dict(steps_per_s=n / seconds, render_ms=render_ms, max_abs_err=err)
+
+
+def vision_vec(card):
+    """The vec env KManipSoloArmVision at N = 64, render_hw = VISION_HW:
+    ten K1 launches a step and no plain substep; vec and env steps/s, and
+    the split of a step."""
+    env = KManipVecEnv("KManipSoloArmVision", N_VEC, seed=3, device=DEV,
+                       render_hw=ex12.VISION_HW)
+    rng = np.random.default_rng(3)
+    actions = [vec_actions(env.cfg, N_VEC, rng) for _ in range(VISION_VEC_STEPS)]
+    env.reset()
+    env.step(actions[0])
+    env.reset()
+    reset_counts()
+    plain_substeps = Recorder(engine, "_substep_torch")
+    with plain_substeps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in actions:
+            obs = env.step(a)[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    n = len(actions)
+    if counts() != only(K1=10 * n) or plain_substeps.calls:
+        raise AssertionError(f"vision vec: launches {counts()}, plain substeps "
+                             f"{plain_substeps.calls}; expected {10 * n} of K1 and none")
+    for cam in env.cameras:
+        img = obs[cam.log_name]
+        if not (img.dtype == torch.uint8 and tuple(img.shape) == (N_VEC,) + ex12.VISION_HW + (3,)
+                and float(img.float().std()) > 0):
+            raise AssertionError(f"vision vec: {cam.log_name} {img.dtype} {tuple(img.shape)}")
+    # the split of a step: its stages from the same state, each ended by a
+    # synchronize, then the step itself, its render and the rest
+    split = dict(goals=0.0, trf=0.0, control_step=0.0, obs_reward=0.0, render=0.0, rest=0.0)
+    for a in actions[:4]:
+        part = vec_split(env, [a])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env.step(a)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = env._states
+        for cam in env.cameras:
+            raycast.render_camera(env.model, cam.name, st.qpos, st.cube_pos, st.cube_quat,
+                                  *ex12.VISION_HW)
+        torch.cuda.synchronize()
+        part["render"] = 1e3 * (time.perf_counter() - t1)
+        part["rest"] = 1e3 * (t1 - t0) - sum(part.values())
+        for key, v in part.items():
+            split[key] += v / 4
+    log("vision", f"vec KManipSoloArmVision N={N_VEC} render_hw={ex12.VISION_HW}: {n} vec steps "
+                  f"in {seconds:.3f} s, {n / seconds:.3f} vec steps/s, {N_VEC * n / seconds:.1f} "
+                  f"env steps/s; 10 K1 launches and no plain substep per step; split of a step "
+                  f"(ms): " + ", ".join(f"{key} {v:.2f}" for key, v in split.items())
+                  + f" [{card}]")
+    return dict(vec_steps_per_s=n / seconds, env_steps_per_s=N_VEC * n / seconds, split_ms=split)
+
+
+def vision_cost_params(h, w, seed):
+    """CostCNN parameters for (h, w) frames in flax's layout (HWIO conv and
+    (in, out) Dense kernels), drawn by numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    flat = same_side(same_side(h)) * same_side(same_side(w)) * 16
+    shapes = {"Conv_0": (3, 3, 3, 8), "Conv_1": (3, 3, 8, 16), "Dense_0": (flat, 32),
+              "Dense_1": (32, 1)}
+    return {"params": {name: {
+        "kernel": (rng.normal(size=s) / np.sqrt(np.prod(s[:-1]))).astype(np.float32),
+        "bias": rng.normal(0, 0.1, s[-1]).astype(np.float32)} for name, s in shapes.items()}}
+
+
+def vision_mppi(card):
+    """The vision MPPI solve at example 10's shape: H K1 launches a solve
+    and no plain substep, solves/s and renders plus CNN evaluations per
+    second; its J against the plain substep's on one injected draw (1e-4 of
+    |J|); the time of one step's render and CNN beside K1's."""
+    model = get_model("solo_arm")
+    cfg, (h, w) = VISION_MPPI, VISION_MPPI_HW
+    net = vision_cost.cost_cnn_from_flax(vision_cost_params(h, w, seed=10), device=DEV)
+    cost = vision_cost.make_vision_cost(model, net, "top", h, w)
+    solver = make_mppi_solver(model, cfg, cost)
+    s0 = init_state(model, cube_pos=np.array([0.15, 0.58, 0.62]), device=DEV)
+    ms = init_mppi(model, cfg, seed=0, device=DEV)
+    ms, u0, J = solver(ms, s0)
+    reset_counts()
+    plain_substeps = Recorder(engine, "_substep_torch")
+    with plain_substeps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VISION_MPPI_SOLVES):
+            ms, u0, J = solver(ms, s0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    n, H, Kv = VISION_MPPI_SOLVES, cfg.horizon, cfg.n_samples
+    if counts() != only(K1=H * n) or plain_substeps.calls:
+        raise AssertionError(f"vision MPPI: launches {counts()}, plain substeps "
+                             f"{plain_substeps.calls}; expected {H * n} of K1 and none")
+    if not (bool(torch.isfinite(J)) and bool(torch.isfinite(u0).all())):
+        raise AssertionError(f"vision MPPI: J {float(J)}")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    eps = torch.randn((Kv, H, model.nu), generator=gen, device=DEV) * 0.05
+    fresh = init_mppi(model, cfg, seed=0, device=DEV)
+    _, u_k, J_k = solver(fresh, s0, eps=eps)
+    _, u_p, J_p = plain(make_mppi_solver(model, cfg, cost, substep_fn=engine._substep_torch),
+                        fresh, s0, eps=eps)
+    check("vision", f"MPPI J on the K1 route against the plain substep, relative [{card}]",
+          abs(float(J_k) - float(J_p)) / abs(float(J_p)), 1e-4)
+    states = SimState(*(x.expand((Kv,) + tuple(x.shape)).contiguous() for x in s0))
+    step_cost_ms = cuda_ms(lambda: cost(states, None, None), 10)
+    busy, n_launch, _ = device_profile(lambda: cost(states, None, None), 3)
+    solve_ms = 1e3 * seconds / n
+    log("vision", f"MPPI H={H} K={Kv} top {h}x{w}: {n / seconds:.2f} solves/s ({solve_ms:.2f} ms a "
+                  f"solve), {Kv * H * n / seconds:.0f} renders + CNN evaluations per s; "
+                  f"{H} K1 launches and no plain substep per solve; one step's render + CNN "
+                  f"{step_cost_ms:.3f} ms (CUDA events; device busy {busy:.3f} ms in "
+                  f"{n_launch:.0f} launches), {H} of them {H * step_cost_ms:.2f} ms of the "
+                  f"solve; J {float(J_k):.6f} against the plain substep's {float(J_p):.6f} "
+                  f"[{card}]")
+    return dict(solves_per_s=n / seconds, renders_per_s=Kv * H * n / seconds,
+                step_render_cnn_ms=step_cost_ms, J_rel_err=abs(float(J_k) - float(J_p))
+                / abs(float(J_p)))
+
+
+def tip_cube_m(model, state):
+    xpos, xquat, _ = kin.fk(model, state.qpos)
+    tips = engine._tips_from_frames(model, xpos, xquat)
+    return float(torch.linalg.vector_norm(tips - state.cube_pos, dim=-1).min())
+
+
+def vision_zoo(card):
+    """The zoo: all four artifacts load and act on the card; bc_pixels_solo
+    and bc_pick_solo run one 120-step episode each closed loop on
+    control_step (ten K1 launches a step, no plain substep), and their
+    controls on the card match the CPU's (1e-3 and 1e-4 of the ctrl range)."""
+    for name in zoo.list_policies():
+        policy, meta = zoo.load_policy(name, device=DEV)
+        m = get_model(meta["model"])
+        u = policy(init_state(m, device=DEV))
+        if tuple(u.shape) != (m.nu,) or not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"zoo: {name} gave {tuple(u.shape)}")
+    out = {}
+    for name, tol in (("bc_pixels_solo", 1e-3), ("bc_pick_solo", 1e-4)):
+        policy, meta = zoo.load_policy(name, device=DEV)
+        policy_cpu, _ = zoo.load_policy(name, device="cpu")
+        model = get_model(meta["model"])
+        # the JAX package's evaluation (examples/13_bc_pick.py:294-311): the
+        # cube settles for 5 steps at the home pose, then the episode; lifted
+        # is the cube 4 cm above its settled height
+        s0 = init_state(model, cube_pos=np.array([0.2, 0.6, 0.62]), device=DEV)
+        hold = torch.as_tensor(model.home_qpos[: model.nu], dtype=torch.float32, device=DEV)
+        for _ in range(5):
+            s0, _ = engine.control_step(model, s0, hold)
+        z0 = float(s0.cube_pos[2])
+        engine.control_step(model, s0, policy(s0))
+        reset_counts()
+        plain_substeps = Recorder(engine, "_substep_torch")
+        kept, state, cube_z = [], s0, []
+        with plain_substeps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(ZOO_STEPS):
+                if t % 40 == 0:
+                    kept.append(state)
+                state, aux = engine.control_step(model, state, policy(state))
+                cube_z.append(state.cube_pos[2])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if counts() != only(K1=10 * ZOO_STEPS) or plain_substeps.calls:
+            raise AssertionError(f"zoo {name}: launches {counts()}, plain substeps "
+                                 f"{plain_substeps.calls}")
+        span = torch.as_tensor(model.ctrl_range[:, 1] - model.ctrl_range[:, 0],
+                               dtype=torch.float32)
+        batch = SimState(*(torch.stack(x) for x in zip(*kept)))
+        gap = float(((policy(batch).cpu() - policy_cpu(SimState(*(x.cpu() for x in batch))))
+                     .abs() / span).max())
+        check("vision", f"zoo {name}: card against CPU controls on {len(kept)} states, "
+                        f"share of the ctrl range [{card}]", gap, tol)
+        d0, d1 = tip_cube_m(model, s0), tip_cube_m(model, state)
+        lift = float(torch.stack(cube_z).max()) - z0
+        log("vision", f"zoo {name}: {ZOO_STEPS} control steps closed loop in {seconds:.3f} s, "
+                      f"{ZOO_STEPS / seconds:.2f} control steps/s; tip-cube distance {d0:.4f} -> "
+                      f"{d1:.4f} m, the cube's highest {lift:+.4f} m from its settled height "
+                      f"(lifted: {lift > 0.04}); {10 * ZOO_STEPS} K1 launches, no plain "
+                      f"substep [{card}]")
+        out[name] = dict(control_steps_per_s=ZOO_STEPS / seconds, ctrl_gap=gap)
+    return out
+
+
+def phase_vision():
+    """Phase 15: the vision serving path, each piece on K1 with no plain
+    substep."""
+    card = card_line()
+    t0 = time.perf_counter()
+    frame_ms, within = vision_renders(card)
+    episodes = {env_id: vision_episode(env_id, n, card) for env_id, n in VISION_EPISODES.items()}
+    vec = vision_vec(card)
+    mppi = vision_mppi(card)
+    zoo_runs = vision_zoo(card)
+    reset_counts()
+    lines = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ex12.train(env_id=ex12.VISION_ENV, vision=True, n_updates=1, n_envs=N_VEC,
+               t_rollout=ex12.T_ROLLOUT, seed=0, log=lines.append, device=DEV)
+    torch.cuda.synchronize()
+    ppo_s = time.perf_counter() - t1
+    loss = float(lines[0].split("loss")[-1])
+    if counts() != only(K1=10 * ex12.T_ROLLOUT) or not np.isfinite(loss):
+        raise AssertionError(f"example 12 --vision: launches {counts()}, loss {loss}")
+    log("vision", f"example 12 --vision: one PPO update (N={N_VEC}, T={ex12.T_ROLLOUT}, "
+                  f"{ex12.PPO_EPOCHS} epochs, CNNPolicy at {ex12.VISION_HW}) in {ppo_s:.2f} s, "
+                  f"loss {loss:.4f} [{card}]")
+    log("done", f"the vision phase took {time.perf_counter() - t0:.1f} s")
+    err = max(e["max_abs_err"] for e in episodes.values())
+    return dict(launches_per_env_step=10, launches_per_vec_step=10,
+                launches_per_mppi_solve=VISION_MPPI.horizon, launches_per_zoo_step=10,
+                max_abs_err=err, render_within_one_level=within, render_ms=frame_ms,
+                env_steps_per_s={k_: e["steps_per_s"] for k_, e in episodes.items()},
+                vec_env_steps_per_s=vec["env_steps_per_s"], mppi_solves_per_s=mppi["solves_per_s"],
+                mppi_renders_per_s=mppi["renders_per_s"],
+                zoo_control_steps_per_s={k_: z["control_steps_per_s"]
+                                         for k_, z in zoo_runs.items()},
+                ppo_update_s=ppo_s)
+
+
 def strip(r):
     """A nested row for the kernels line: its bound as bound_ms and
     bound_by, nothing else that is not a number, a string or a row."""
@@ -2105,6 +2482,9 @@ def main():
     k1["max_abs_err"] = max(k1["max_abs_err"], k1["vec"]["max_abs_err"])
     no_staged_launch("the vec phase")
     log("done", f"the vec phase took {time.perf_counter() - t_vec:.1f} s")
+    k1["vision"] = phase_vision()
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1["vision"]["max_abs_err"])
+    no_staged_launch("the vision phase")
 
     rows = [
         ("substep_batched", "substep.cu", "gym_kmanip_tpu/ops/pallas_substep.py:404", k1),
@@ -2133,8 +2513,8 @@ def main():
     # per launch that the profiler read on the staged route and in the iLQR
     # solve (profiled_ms), and on phase 8's inputs (device_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("ilqr", "env", "vec", "examples", "torso", "n20", "variants", "k4_ms", "profiled_ms",
-             "profiled_ms_k1500", "device_ms", "teams", "alternates")
+    extra = ("ilqr", "env", "vec", "vision", "examples", "torso", "n20", "variants", "k4_ms",
+             "profiled_ms", "profiled_ms_k1500", "device_ms", "teams", "alternates")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2146,11 +2526,7 @@ def main():
         "library_ms": r.get("library_ms"),
         **{key: strip(r[key]) for key in extra if key in r},
     } for name, src, replaces, r in rows]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ JAX package's MJCF assets by path.
 
 Ported so far: the solo-arm MPPI pick solve (models, dynamics, MPC), the
 iLQR solve (solvers/ilqr.py, solvers/parallel_lqr.py), the single Gym env
-for the non-vision ids (env/, solvers/ik_host.py, native/) and examples 8,
-9 and 11. Every Pallas kernel of the JAX package is a hand-written CUDA
+for all eight ids (env/, solvers/ik_host.py, native/), the vectorized env
+(env/vec_env.py, solvers/trf.py, solvers/ik.py), the vision serving path
+(render/raycast.py, mpc/vision_cost.py, zoo/) and examples 8, 9, 11 and
+12. Every Pallas kernel of the JAX package is a hand-written CUDA
 kernel for Hopper in `csrc/`, bound by the `ops/*_cuda.py` wrappers.
 """
 

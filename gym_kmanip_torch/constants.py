@@ -2,15 +2,15 @@
 
 A copy of the values in `gym_kmanip_tpu/constants.py` (physics, contact,
 limit, cube, table and reward constants, robot home poses, and the env's
-action scales, masks, spawn range and IK weights), so the port needs
-neither JAX nor the JAX package at run time. The camera specs belong to
-the vision slice and are not here yet.
+action scales, masks, spawn range and IK weights, and the camera specs),
+so the port needs neither JAX nor the JAX package at run time.
 `tests/test_torch_models.py` holds every value here equal to the JAX
 package's.
 """
 
 import os
 from collections import OrderedDict as ODict
+from dataclasses import dataclass
 from typing import List, OrderedDict, Tuple
 
 import numpy as np
@@ -58,6 +58,32 @@ IK_MAX_ITERS: int = 12
 
 # Gym space dtypes
 OBS_DTYPE: np.dtype = np.float64
+
+
+
+@dataclass
+class Cam:
+    """Camera spec: note the order, width before height."""
+
+    w: int  # image width
+    h: int  # image height
+    c: int  # image channels
+    fl: int  # focal length
+    pp: Tuple[int, int]  # principal point
+    name: str
+    log_name: str
+    low: int = 0
+    high: int = 255
+    dtype = np.uint8
+    device_id: int = 0
+    fps: int = 30
+
+
+CAMERAS: OrderedDict[str, Cam] = ODict()
+CAMERAS["head"] = Cam(640, 480, 3, 448, (320, 240), "head", "camera/head")
+CAMERAS["top"] = Cam(640, 480, 3, 448, (320, 240), "top", "camera/top")
+CAMERAS["grip_r"] = Cam(60, 40, 3, 45, (30, 20), "grip_r", "camera/grip_r")
+CAMERAS["grip_l"] = Cam(60, 40, 3, 45, (30, 20), "grip_l", "camera/grip_l")
 
 # cube spawn bounds (x, y, z rows of [lo, hi])
 CUBE_SPAWN_RANGE: NDArray = np.array(

@@ -1,24 +1,23 @@
 """The single env: config, task core, simulation backend and Gym shell.
 
-`register()` registers the five non-vision ids with gymnasium under the
+`register()` registers the eight env ids with gymnasium under the
 namespace `gym_kmanip_torch/` (`gym.make("gym_kmanip_torch/KManipSoloArm",
 device="cpu")`), beside the JAX package's bare ids. It imports gymnasium,
 and raises ImportError where there is none; nothing else in the package
 needs it (`env_sim.KManipEnvSim` drives the task without it).
 """
 
-from gym_kmanip_torch.env.config import CONFIGS, STATE_ENV_IDS
+from gym_kmanip_torch.env.config import CONFIGS
 
 NAMESPACE = "gym_kmanip_torch"
 
 
 def register():
-    """Register `gym_kmanip_torch/<id>` for each non-vision id (once)."""
+    """Register `gym_kmanip_torch/<id>` for each env id (once)."""
     from gymnasium.envs.registration import register as gym_register
     from gymnasium.envs.registration import registry
 
-    for env_id in STATE_ENV_IDS:
-        cfg = CONFIGS[env_id]
+    for env_id, cfg in CONFIGS.items():
         name = f"{NAMESPACE}/{env_id}"
         if name in registry:
             continue

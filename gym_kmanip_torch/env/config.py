@@ -1,9 +1,8 @@
 """Typed env configuration registry.
 
 Port of `gym_kmanip_tpu/env/config.py`: the same eight env ids with the
-same obs/act lists, home poses and masks. The port's env runs the five
-non-vision ids; the three `*Vision` ids are here for the record and wait
-for the vision slice (ROADMAP.md Queue 1).
+same obs/act lists, home poses and masks. The three `*Vision` ids observe
+camera frames beside the joint state.
 """
 
 from dataclasses import dataclass
@@ -93,6 +92,7 @@ CONFIGS: Dict[str, EnvConfig] = {
     ]
 }
 
-# the ids the port's env runs (the vision ids wait for the raycaster)
+# the ids without and with camera observations
 STATE_ENV_IDS: Tuple[str, ...] = tuple(
     i for i, c in CONFIGS.items() if not any("camera" in o for o in c.obs_list))
+VISION_ENV_IDS: Tuple[str, ...] = tuple(i for i in CONFIGS if i not in STATE_ENV_IDS)

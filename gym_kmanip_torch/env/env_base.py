@@ -9,8 +9,9 @@ gymnasium is imported lazily: `KManipEnv` is built on first access of the
 name (`from gym_kmanip_torch.env.env_base import KManipEnv`, or gymnasium's
 entry point), so importing this module needs no gymnasium, as on a GPU host
 that has none. The logging side-cars (`log_h5py`, `log_rerun`) and the
-real-robot backend (`sim=False`) are ROADMAP.md Queue 1 item 8 and raise;
-camera observations are item 6 and raise in the backend.
+real-robot backend (`sim=False`) are ROADMAP.md Queue 1 item 8 and raise.
+Camera observations are `Box(0, 255, (h, w, 3), uint8)` at the Cam spec's
+size, and `render()` returns the top camera's frame.
 """
 
 import functools
@@ -84,9 +85,8 @@ def _env_class():
             self.q_id_l_mask = q_id_l_mask
             self.ctrl_id_r_grip = ctrl_id_r_grip
             self.ctrl_id_l_grip = ctrl_id_l_grip
-            # camera specs come with the vision slice; the backend raises
-            # for any camera observation
-            self.cameras: List[str] = [o for o in obs_list if "camera" in o]
+            self.cameras: List[k.Cam] = [k.CAMERAS[o.split("/")[-1]]
+                                         for o in obs_list if "camera" in o]
             self.log_rerun: bool = log_rerun
             self.log_h5py: bool = log_h5py
             self.mjcf_filename: str = mjcf_filename
@@ -103,6 +103,9 @@ def _env_class():
                 _obs["cube_pos"] = spaces.Box(-1, 1, shape=(3,), dtype=k.OBS_DTYPE)
             if "cube_orn" in obs_list:
                 _obs["cube_orn"] = spaces.Box(-1, 1, shape=(4,), dtype=k.OBS_DTYPE)
+            for cam in self.cameras:
+                _obs[cam.log_name] = spaces.Box(low=cam.low, high=cam.high,
+                                                shape=(cam.h, cam.w, 3), dtype=cam.dtype)
             self.observation_space = spaces.Dict(_obs)
 
             # action space
@@ -154,7 +157,7 @@ def _env_class():
             }
 
         def render(self):
-            return self.env.k_render("top")
+            return self.env.k_render(k.CAMERAS["top"])
 
         def reset(self, seed=None, options=None):
             super().reset(seed=seed)

@@ -7,10 +7,12 @@ the episode's cube spawn, drawn from the Gym shell's
 step copies the action to the device in one transfer and its obs, reward
 and time to the host in one transfer.
 
-`gym_env` is duck-typed: it needs only `cfg`, `obs_list`, `cameras` and
-`np_random`, so the backend runs without gymnasium (on a GPU host that
-has none). Camera observations and `k_render` belong to the vision slice
-(ROADMAP.md Queue 1 item 6) and raise.
+`gym_env` is duck-typed: it needs only `cfg`, `obs_list`, `cameras` (the
+`constants.Cam` specs of its camera observations) and `np_random`, so the
+backend runs without gymnasium (on a GPU host that has none). Each camera
+is rendered by the raycaster (render/raycast.py) at its Cam spec's size
+after every reset and step, on the device, and copied to the host as
+uint8 in one transfer per camera.
 
 The k_* return tuple mirrors the reference's dm_control TimeStep:
 (terminated, reward, discount, observation, sim_time).
@@ -24,18 +26,11 @@ import torch
 
 from gym_kmanip_torch import constants as k
 from gym_kmanip_torch.env.task import make_task
-
-
-def _vision_not_ported():
-    return NotImplementedError(
-        "camera observations and k_render need the raycaster (render/raycast.py), which is "
-        "not ported yet: ROADMAP.md Queue 1 item 6")
+from gym_kmanip_torch.render.raycast import make_render_fn
 
 
 class KManipEnvSim:
     def __init__(self, gym_env, device="cuda"):
-        if gym_env.cameras:
-            raise _vision_not_ported()
         self.gym_env = gym_env
         self.cfg = gym_env.cfg
         self.reset_fn, self.step_fn, self.model = make_task(self.cfg, device=device)
@@ -43,6 +38,8 @@ class KManipEnvSim:
         self.state = None
         self.step_count = 0
         self._layout = None  # the obs fields' names, shapes and sizes
+        self.render_fns = {cam.name: make_render_fn(self.model, cam.name, cam.h, cam.w)
+                           for cam in gym_env.cameras}
 
     # -- protocol ----------------------------------------------------------
     def k_reset(self):
@@ -63,8 +60,13 @@ class KManipEnvSim:
         # reference (its dm_control StepType trips on the time limit only)
         return False, reward, 1.0, obs, t
 
-    def k_render(self, cam):
-        raise _vision_not_ported()
+    def k_render(self, cam: k.Cam) -> np.ndarray:
+        """The (h, w, 3) uint8 frame of camera `cam` at the current state."""
+        fn = self.render_fns.get(cam.name)
+        if fn is None:
+            fn = self.render_fns[cam.name] = make_render_fn(self.model, cam.name, cam.h, cam.w)
+        s = self.state
+        return fn(s.qpos, s.cube_pos, s.cube_quat).cpu().numpy()
 
     def k_close(self):
         self.state = None
@@ -96,6 +98,8 @@ class KManipEnvSim:
         for n, shape, size in zip(names, shapes, sizes):
             obs[n] = flat[off: off + size].reshape(shape).astype(k.OBS_DTYPE)
             off += size
+        for cam in self.gym_env.cameras:
+            obs[cam.log_name] = self.k_render(cam)
         return obs, float(flat[-2]), float(flat[-1])
 
 

@@ -17,12 +17,14 @@ without reading the device (every env steps together). Cube spawns are
 drawn from the env's own `torch.Generator` (on the CPU, so a seed gives the
 same spawns on every device); `reset` and `step` also take injected spawns.
 
-The vision ids and `render_hw` need the raycaster (ROADMAP.md Queue 1
-item 6) and raise.
+The `*Vision` ids render each camera once per step for the whole batch
+(render/raycast.py: one call, (N, h, w, 3) uint8 on the device), after the
+autoreset, so the frames are of the fresh states as the rest of the
+observation is; at `render_hw` = (h, w) or else at the Cam spec's size.
 """
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,21 +35,14 @@ from gym_kmanip_torch.dynamics.state import SimState, init_state
 from gym_kmanip_torch.env.config import CONFIGS, EnvConfig
 from gym_kmanip_torch.env.task import _decode_action, _observe, _reward
 from gym_kmanip_torch.models import canonical_device, get_model
-
-
-def _vision_not_ported():
-    return NotImplementedError(
-        "camera observations (the *Vision ids, render_hw) need the raycaster "
-        "(render/raycast.py), which is not ported yet: ROADMAP.md Queue 1 item 6")
+from gym_kmanip_torch.render.raycast import render_camera
 
 
 class KManipVecEnv:
     def __init__(self, env_id: str, num_envs: int, seed: int = 0, device="cuda",
-                 render_hw=None):
+                 render_hw: Optional[Tuple[int, int]] = None):
         if env_id not in CONFIGS:
             raise KeyError(f"unknown env id {env_id}; one of {list(CONFIGS)}")
-        if render_hw is not None or any("camera" in o for o in CONFIGS[env_id].obs_list):
-            raise _vision_not_ported()
         # the batch keeps its IK on the device (the float32 TRF), as the
         # JAX version does; the single env's parity path is the float64
         # host solver (EnvConfig.ik_host64)
@@ -55,6 +50,8 @@ class KManipVecEnv:
         self.num_envs = num_envs
         self.device = canonical_device(device)
         self.model = get_model(self.cfg.mjcf_filename)
+        self.cameras = [k.CAMERAS[o.split("/")[-1]] for o in self.cfg.obs_list if "camera" in o]
+        self.render_hw = render_hw
         self.generator = torch.Generator()
         self.generator.manual_seed(seed)
         self._home = init_state(self.model, device=self.device)
@@ -77,6 +74,15 @@ class KManipVecEnv:
         return s._replace(cube_pos=torch.as_tensor(spawns, dtype=torch.float32,
                                                    device=self.device).reshape(n, 3))
 
+    def _observation(self, states: SimState) -> Dict[str, torch.Tensor]:
+        """The observation of a state batch, camera frames included."""
+        obs = _observe(self.model, self.cfg, states)
+        for cam in self.cameras:
+            h, w = self.render_hw if self.render_hw is not None else (cam.h, cam.w)
+            obs[cam.log_name] = render_camera(self.model, cam.name, states.qpos,
+                                              states.cube_pos, states.cube_quat, h, w)
+        return obs
+
     def _device_actions(self, actions) -> Dict[str, torch.Tensor]:
         return {name: torch.as_tensor(v, dtype=torch.float32, device=self.device)
                 .reshape(self.num_envs, -1) for name, v in actions.items()}
@@ -89,7 +95,7 @@ class KManipVecEnv:
             self.generator.manual_seed(seed)
         self._states = self._fresh(self.sample_spawns() if spawns is None else spawns)
         self._steps[:] = 0
-        return _observe(self.model, self.cfg, self._states)
+        return self._observation(self._states)
 
     def step(self, actions, spawns=None):
         """actions: a dict of (N, dim) arrays or tensors in the env's action
@@ -109,7 +115,7 @@ class KManipVecEnv:
         if truncated.any():
             # gymnasium 0.29: the ending episodes' last observations ride in
             # info["final_observation"], masked by "_final_observation"
-            final = _observe(model, cfg, states)
+            final = self._observation(states)
             fresh = self._fresh(self.sample_spawns() if spawns is None else spawns)
             mask = torch.as_tensor(truncated, device=self.device)
             states = SimState(*(
@@ -126,7 +132,7 @@ class KManipVecEnv:
         self._states = states
         # TimeLimit only, like the reference
         terminated = np.zeros(self.num_envs, dtype=bool)
-        return _observe(model, cfg, states), reward, terminated, truncated, info
+        return self._observation(states), reward, terminated, truncated, info
 
     def close(self):
         self._states = None

@@ -1,15 +1,16 @@
 """RL on the device: PPO over a batch of vectorized KManip envs.
 
-Port of `gym_kmanip_tpu/examples/12_train_vec_rl.py`, state mode: an MLP
-policy on the observation vector, N envs stepped as one batch
-(env/vec_env.KManipVecEnv: the float32 device TRF and one substep kernel
-launch per substep for all N envs), and PPO updates with Adam. Observations,
-actions and the rollout buffer stay on the device.
+Port of `gym_kmanip_tpu/examples/12_train_vec_rl.py`: N envs stepped as
+one batch (env/vec_env.KManipVecEnv: the float32 device TRF and one
+substep kernel launch per substep for all N envs), and PPO updates with
+Adam. Observations, actions and the rollout buffer stay on the device.
+Two modes:
+  * state (default): an MLP policy on the observation vector;
+  * --vision: a CNN policy on the grip camera's frames of
+    KManipSoloArmVision, which the vec env renders for the whole batch at
+    VISION_HW.
 
-    python -m gym_kmanip_torch.examples.12_train_vec_rl
-
-`--vision` (the CNN policy on rendered grip-camera frames) needs the
-raycaster (ROADMAP.md Queue 1 item 6) and raises.
+    python -m gym_kmanip_torch.examples.12_train_vec_rl [--vision]
 """
 
 import math
@@ -22,6 +23,8 @@ import torch
 from torch import nn
 
 from gym_kmanip_torch.env.vec_env import KManipVecEnv
+from gym_kmanip_torch.utils.flax_layers import (
+    SameConv, flatten_hwc, flax_init_, images_nchw, inner, load_conv, load_dense, same_side)
 
 N_ENVS = 64
 T_ROLLOUT = 16
@@ -31,21 +34,10 @@ CLIP = 0.2
 GAMMA = 0.97
 LAM = 0.95
 LR = 3e-4
+VISION_HW = (32, 32)
+VISION_ENV = "KManipSoloArmVision"
 
 _LOG_2PI = math.log(2 * math.pi)
-
-
-def _vision_not_ported():
-    return NotImplementedError(
-        "--vision (CNNPolicy on rendered grip-camera frames) needs the raycaster, which "
-        "is not ported yet: ROADMAP.md Queue 1 item 6")
-
-
-def _lecun_normal_(w: torch.Tensor):
-    """flax's default Dense kernel init: a normal truncated at two standard
-    deviations, scaled to variance 1 / fan_in."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
 class MLPPolicy(nn.Module):
@@ -61,9 +53,7 @@ class MLPPolicy(nn.Module):
         self.value_hidden = nn.Linear(128, 64)
         self.value = nn.Linear(64, 1)
         self.log_std = nn.Parameter(torch.full((act_dim,), -0.7))
-        for layer in (self.hidden0, self.hidden1, self.mean, self.value_hidden, self.value):
-            _lecun_normal_(layer.weight)
-            nn.init.zeros_(layer.bias)
+        flax_init_(self)
 
     def forward(self, x):
         x = torch.tanh(self.hidden0(x))
@@ -79,21 +69,63 @@ def mlp_policy_from_flax(params, device="cpu") -> MLPPolicy:
     the value head `nn.Dense(1)` is built before the `nn.Dense(64)` in its
     argument: Dense_3 is the (64 -> 1) value head, Dense_4 the (128 -> 64)
     hidden layer. A flax kernel is (in, out), a torch weight (out, in)."""
-    p = params.get("params", params)
+    p = inner(params)
+    policy = MLPPolicy(np.shape(p["Dense_0"]["kernel"])[0], np.shape(p["Dense_2"]["kernel"])[1])
     names = {"Dense_0": "hidden0", "Dense_1": "hidden1", "Dense_2": "mean",
              "Dense_3": "value", "Dense_4": "value_hidden"}
-    kernel = lambda name: np.asarray(p[name]["kernel"], np.float32)  # noqa: E731
-    policy = MLPPolicy(kernel("Dense_0").shape[0], kernel("Dense_2").shape[1])
+    return _load_policy(policy, p, names, device)
+
+
+class CNNPolicy(nn.Module):
+    """The JAX example's flax CNNPolicy on (..., h, w, 3) uint8 frames: two
+    SAME convs of stride 2 (16, 32), a tanh layer of 128, a linear mean
+    head, a value head through a tanh layer of 64, and log_std."""
+
+    def __init__(self, act_dim: int, hw=VISION_HW):
+        super().__init__()
+        self.conv0 = SameConv(3, 16)
+        self.conv1 = SameConv(16, 32)
+        self.hidden = nn.Linear(same_side(same_side(hw[0])) * same_side(same_side(hw[1])) * 32,
+                                128)
+        self.mean = nn.Linear(128, act_dim)
+        self.value_hidden = nn.Linear(128, 64)
+        self.value = nn.Linear(64, 1)
+        self.log_std = nn.Parameter(torch.full((act_dim,), -0.7))
+        flax_init_(self)
+
+    def forward(self, img):
+        x, lead = images_nchw(img.float() / 255.0)
+        x = torch.relu(self.conv1(torch.relu(self.conv0(x))))
+        x = torch.tanh(self.hidden(flatten_hwc(x)))
+        value = self.value(torch.tanh(self.value_hidden(x)))[..., 0]
+        return self.mean(x).reshape(lead + (-1,)), self.log_std, value.reshape(lead)
+
+
+def cnn_policy_from_flax(params, hw=VISION_HW, device="cpu") -> CNNPolicy:
+    """A CNNPolicy holding the weights of the JAX example's flax CNNPolicy
+    for (h, w) frames. flax names Dense_2 the (64 -> 1) value head and
+    Dense_3 the (128 -> 64) layer in its argument, as in MLPPolicy."""
+    p = inner(params)
+    policy = CNNPolicy(np.shape(p["Dense_1"]["kernel"])[1], hw)
+    load_conv(policy.conv0, p["Conv_0"])
+    load_conv(policy.conv1, p["Conv_1"])
+    names = {"Dense_0": "hidden", "Dense_1": "mean", "Dense_2": "value", "Dense_3": "value_hidden"}
+    return _load_policy(policy, p, names, device)
+
+
+def _load_policy(policy, p, names, device):
+    """The flax Dense layers `names` ({flax name: attribute}) and log_std
+    of p into `policy`, on `device`."""
+    for flax_name, attr in names.items():
+        load_dense(getattr(policy, attr), p[flax_name])
     with torch.no_grad():
-        for flax_name, attr in names.items():
-            layer = getattr(policy, attr)
-            layer.weight.copy_(torch.as_tensor(kernel(flax_name).T))
-            layer.bias.copy_(torch.as_tensor(np.asarray(p[flax_name]["bias"], np.float32)))
         policy.log_std.copy_(torch.as_tensor(np.asarray(p["log_std"], np.float32)))
     return policy.to(device)
 
 
-def obs_to_net_input(obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+def obs_to_net_input(obs: Dict[str, torch.Tensor], vision: bool = False) -> torch.Tensor:
+    if vision:
+        return obs["camera/grip_r"]
     return torch.cat([obs[n] for n in ("q_pos", "q_vel", "cube_pos", "cube_orn") if n in obs],
                      dim=-1)
 
@@ -175,17 +207,19 @@ def act_spec_of(cfg):
 
 def train(env_id="KManipSoloArm", vision=False, n_updates=N_UPDATES, n_envs=N_ENVS, seed=0,
           t_rollout=T_ROLLOUT, log=print, device="cuda"):
-    """PPO on `n_envs` envs of `env_id`: `n_updates` rounds of a
-    `t_rollout`-step rollout, GAE and PPO_EPOCHS updates. Returns (policy,
-    mean reward of each rollout)."""
-    if vision:
-        raise _vision_not_ported()
-    env = KManipVecEnv(env_id, n_envs, seed=seed, device=device)
+    """PPO on `n_envs` envs of `env_id` (with `vision`, the CNN policy on
+    the grip camera at VISION_HW; `env_id` must have that camera, as
+    KManipSoloArmVision has): `n_updates` rounds of a `t_rollout`-step
+    rollout, GAE and PPO_EPOCHS updates. Returns (policy, mean reward of
+    each rollout)."""
+    env = KManipVecEnv(env_id, n_envs, seed=seed, device=device,
+                       render_hw=VISION_HW if vision else None)
     obs = env.reset(seed=seed)
     act_spec = act_spec_of(env.cfg)
+    act_dim = sum(d for _, d in act_spec)
     torch.manual_seed(seed)
-    x = obs_to_net_input(obs)
-    policy = MLPPolicy(x.shape[-1], sum(d for _, d in act_spec)).to(env.device)
+    x = obs_to_net_input(obs, vision)
+    policy = (CNNPolicy(act_dim) if vision else MLPPolicy(x.shape[-1], act_dim)).to(env.device)
     opt = make_optimizer(policy)
     gen = torch.Generator(device=env.device)
     gen.manual_seed(seed)
@@ -194,7 +228,7 @@ def train(env_id="KManipSoloArm", vision=False, n_updates=N_UPDATES, n_envs=N_EN
     for upd in range(n_updates):
         O, A, LP, V, R = [], [], [], [], []
         for _ in range(t_rollout):
-            x = obs_to_net_input(obs)
+            x = obs_to_net_input(obs, vision)
             act, logp, value = policy_step(policy, x, gen)
             obs, reward, _, _, _ = env.step(split_action(act, act_spec))
             O.append(x)
@@ -202,7 +236,7 @@ def train(env_id="KManipSoloArm", vision=False, n_updates=N_UPDATES, n_envs=N_EN
             LP.append(logp)
             V.append(value)
             R.append(reward)
-        _, _, last_v = policy_step(policy, obs_to_net_input(obs), gen)
+        _, _, last_v = policy_step(policy, obs_to_net_input(obs, vision), gen)
         advs, returns = gae(torch.stack(R), torch.stack(V), last_v)
         flat = [torch.cat(t) for t in (O, A, LP)]
         for _ in range(PPO_EPOCHS):
@@ -217,8 +251,8 @@ def main(argv=None, device="cuda"):
     argv = sys.argv[1:] if argv is None else argv
     vision = "--vision" in argv
     t0 = time.time()
-    _, mrs = train(vision=vision, device=device)
-    print(f"trained {N_UPDATES} PPO updates x {N_ENVS} envs (state) in "
+    _, mrs = train(env_id=VISION_ENV if vision else "KManipSoloArm", vision=vision, device=device)
+    print(f"trained {N_UPDATES} PPO updates x {N_ENVS} envs ({'vision' if vision else 'state'}) in "
           f"{time.time() - t0:.1f}s; mean reward {mrs[0]:.4f} -> {mrs[-1]:.4f}")
     return mrs
 

@@ -658,3 +658,86 @@ def test_device_trf_matches_host_float64_on_cuda(cuda):
     alone = ik.ik_trf(m, *(a[5] if a.dim() > 1 else a for a in args), q_mask=mask,
                       site_name="eer_site")
     np.testing.assert_allclose(alone[0].cpu().numpy(), q_sol[5], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["solo_arm", "dual_arm", "torso"])
+def test_render_on_card_matches_cpu(cuda, name):
+    """Every camera of a robot at its Cam spec size, on a batch of two
+    seeded states, on the card against the CPU: within one level on at
+    least 99.5% of the pixels (tests/test_torch_render.py's band against
+    JAX), a real frame (std > 0)."""
+    from gym_kmanip_torch import constants as k
+    from gym_kmanip_torch.render.raycast import render_camera
+
+    m = get_model(name)
+    rng = np.random.default_rng(4)
+    q = torch.as_tensor((m.home_qpos + rng.uniform(-0.2, 0.2, (2, m.nq))).astype(np.float32))
+    cube = torch.as_tensor(rng.uniform([0.1, 0.5, 0.6], [0.3, 0.7, 0.7], (2, 3)).astype(np.float32))
+    quat = torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 2)
+    for cam in m.cameras:
+        spec = k.CAMERAS[cam.name]
+        want = render_camera(m, cam.name, q, cube, quat, spec.h, spec.w).numpy()
+        got = render_camera(m, cam.name, q.to(cuda), cube.to(cuda), quat.to(cuda), spec.h,
+                            spec.w).cpu().numpy()
+        diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(axis=-1)
+        assert (diff <= 1).mean() >= 0.995, (cam.name, (diff <= 1).mean())
+        assert got.std() > 0
+
+
+def test_vision_serving_on_card_launches_k1(cuda):
+    """A KManipSoloArmVision step through the backend launches K1 ten times
+    and renders its cameras on the card; a vision MPPI solve at H = 3
+    launches K1 three times; the zoo's pixels policy on the card matches
+    the CPU's at 1e-3 of the ctrl range."""
+    import types
+
+    from gym_kmanip_torch import constants as k
+    from gym_kmanip_torch import zoo
+    from gym_kmanip_torch.dynamics.state import SimState, init_state
+    from gym_kmanip_torch.env.config import CONFIGS
+    from gym_kmanip_torch.env.env_sim import KManipEnvSim
+    from gym_kmanip_torch.mpc.mppi import MPPIConfig, init_mppi, make_mppi_solver
+    from gym_kmanip_torch.mpc.vision_cost import init_cost_params, make_vision_cost
+
+    cfg = CONFIGS["KManipSoloArmVision"]
+    shell = types.SimpleNamespace(cfg=cfg, obs_list=list(cfg.obs_list),
+                                  cameras=[k.CAMERAS["head"], k.CAMERAS["grip_r"]],
+                                  np_random=np.random.default_rng(0))
+    sim = KManipEnvSim(shell, device=cuda)
+    sim.k_reset()
+    before = substep_cuda.substep_batched.launches
+    _, _, _, obs, _ = sim.k_step({"eer_pos": np.ones(3), "eer_orn": np.zeros(3),
+                                  "grip_r": np.zeros(1)})
+    assert substep_cuda.substep_batched.launches == before + 10
+    assert obs["camera/head"].shape == (480, 640, 3) and obs["camera/head"].std() > 0
+    m = get_model("solo_arm")
+    cost = make_vision_cost(m, init_cost_params(0, 12, 15, device=cuda), "top", 12, 15)
+    mcfg = MPPIConfig(horizon=3, n_samples=16)
+    s0 = init_state(m, device=cuda)
+    before = substep_cuda.substep_batched.launches
+    _, u0, J = make_mppi_solver(m, mcfg, cost)(init_mppi(m, mcfg, device=cuda), s0)
+    torch.cuda.synchronize()
+    assert substep_cuda.substep_batched.launches == before + 3 and bool(torch.isfinite(J))
+    # the zoo's pixels policy: its frame on the card within one level of the
+    # CPU's, and on the CPU's frame its control equals the CPU policy's. A
+    # one-level pixel moves this network's slider control by up to ~1.5e-3
+    # of the range (the home state), so end to end chip_smoke.py holds it at
+    # 1e-3 on an episode's states.
+    policy, meta = zoo.load_policy("bc_pixels_solo", device=cuda)
+    policy_cpu, _ = zoo.load_policy("bc_pixels_solo", device="cpu")
+    s_cpu = SimState(*(x.cpu() for x in s0))
+    h, w = meta["img_h"], meta["img_w"]
+    frame = zoo.render_camera(m, "top", s_cpu.qpos, s_cpu.cube_pos, s_cpu.cube_quat, h, w)
+    on_card = zoo.render_camera(m, "top", s0.qpos, s0.cube_pos, s0.cube_quat, h, w).cpu()
+    diff = (on_card.int() - frame.int()).abs().amax(dim=-1)
+    assert float((diff <= 1).float().mean()) >= 0.995
+    saved_render, saved_tf32 = zoo.render_camera, torch.backends.cudnn.allow_tf32
+    zoo.render_camera = lambda *a, **kw: frame.to(cuda)
+    torch.backends.cudnn.allow_tf32 = False  # full float32 convolutions
+    try:
+        u = policy(s0).cpu().numpy()
+    finally:
+        zoo.render_camera, torch.backends.cudnn.allow_tf32 = saved_render, saved_tf32
+    span = m.ctrl_range[:, 1] - m.ctrl_range[:, 0]
+    gap = np.abs(u - policy_cpu(s_cpu).numpy())
+    assert np.all(gap <= 1e-5 * span), gap / span

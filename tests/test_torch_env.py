@@ -253,6 +253,12 @@ def test_constants_and_configs_match_jax():
         assert n in names, n
     for n in names:
         want, got = getattr(jk, n), getattr(tk, n)
+        if n == "CAMERAS":  # the port's own Cam class: compared field by field
+            assert list(got) == list(want)
+            for name, cam in want.items():
+                assert dataclasses.asdict(got[name]) == dataclasses.asdict(cam), name
+                assert got[name].dtype == cam.dtype, name
+            continue
         if isinstance(want, np.ndarray):
             assert got.dtype == want.dtype, n
             np.testing.assert_array_equal(got, want, err_msg=n)
@@ -272,25 +278,35 @@ def test_constants_and_configs_match_jax():
 
 
 def test_unported_options_raise():
-    """Camera observations and k_render (the vision slice, Queue 1 item 6)
-    still raise; ik_host64=False (item 5) no longer does."""
+    """Camera observations and k_render (Queue 1 item 6a) no longer raise:
+    the backend renders a duck-typed shell's cameras and renders any camera
+    on request. Training the vision CNNs (item 6b) still raises, as do the
+    side-cars (item 8, test_reset_determinism_truncation_and_info);
+    ik_host64=False (item 5) does not."""
     import types
 
     from gym_kmanip_torch.env.env_sim import KManipEnvSim
-    from gym_kmanip_torch.env.vec_env import KManipVecEnv
+    from gym_kmanip_torch.mpc import vision_cost
 
     cfg = config.CONFIGS["KManipSoloArmVision"]
-    shell = types.SimpleNamespace(cfg=cfg, obs_list=list(cfg.obs_list), cameras=["head"],
+    shell = types.SimpleNamespace(cfg=cfg, obs_list=list(cfg.obs_list),
+                                  cameras=[tk.CAMERAS["grip_r"]],
                                   np_random=np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        KManipEnvSim(shell, device="cpu")
+    sim = KManipEnvSim(shell, device="cpu")
+    _, _, _, obs, _ = sim.k_reset()
+    assert obs["camera/grip_r"].shape == (40, 60, 3) and obs["camera/grip_r"].dtype == np.uint8
     shell = types.SimpleNamespace(cfg=config.CONFIGS["KManipSoloArm"], cameras=[],
                                   obs_list=list(config.CONFIGS["KManipSoloArm"].obs_list),
                                   np_random=np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        KManipEnvSim(shell, device="cpu").k_render("head")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        KManipVecEnv("KManipSoloArmVision", num_envs=2, device="cpu")
+    sim = KManipEnvSim(shell, device="cpu")
+    _, _, _, obs, _ = sim.k_reset()
+    assert not any("camera" in key for key in obs)
+    small = dataclasses.replace(tk.CAMERAS["head"], w=20, h=16)
+    frame = sim.k_render(small)
+    assert frame.shape == (16, 20, 3) and frame.dtype == np.uint8 and frame.std() > 0
+    for fit in (vision_cost.fit_distance_cost, vision_cost.fit_cube_pos_estimator):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+            fit(get_model("solo_arm"), 0)
     for env_id in ("KManipSoloArm", "KManipSoloArmQPos"):
         make_task(dataclasses.replace(config.CONFIGS[env_id], ik_host64=False), device="cpu")
 
@@ -384,6 +400,36 @@ def test_reset_determinism_truncation_and_info(gym):
     env.close()
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", log_h5py=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu",
-                 obs_list=["q_pos", "camera/head"])
+    for option in (dict(log_rerun=True), dict(sim=False)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", **option)
+    # a camera in obs_list: a uint8 Box at the Cam spec's size
+    env = gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu",
+                   obs_list=["q_pos", "camera/head"])
+    space = env.observation_space["camera/head"]
+    assert space.shape == (480, 640, 3) and space.dtype == np.uint8 and space.high.max() == 255
+    assert env.unwrapped.cameras == [tk.CAMERAS["head"]]
+    env.close()
+
+
+@pytest.mark.parametrize("env_id", config.VISION_ENV_IDS)
+def test_vision_ids_reset_and_step(gym, env_id):
+    """The *Vision ids through gym.make: reset and one step give in-space
+    uint8 camera frames at the Cam spec sizes (head 480 x 640, grip 40 x
+    60) that are real renders (std > 0); render() is the top camera."""
+    env = gym.make(f"gym_kmanip_torch/{env_id}", device="cpu")
+    obs, _ = env.reset(seed=0)
+    assert env.observation_space.contains(obs)
+    obs, reward, _, _, _ = env.step(env.action_space.sample())
+    assert env.observation_space.contains(obs) and np.isfinite(reward)
+    cams = [n for n in env.observation_space.spaces if "camera" in n]
+    assert cams == [n for n in config.CONFIGS[env_id].obs_list if "camera" in n]
+    for name in cams:
+        cam = tk.CAMERAS[name.split("/")[-1]]
+        img = obs[name]
+        assert img.dtype == np.uint8 and img.shape == (cam.h, cam.w, 3)
+        assert img.std() > 0, name
+    if env_id == "KManipSoloArmVision":
+        top = env.render()
+        assert top.shape == (480, 640, 3) and top.dtype == np.uint8 and top.std() > 0
+    env.close()

@@ -68,6 +68,10 @@ def test_constants_match_jax():
             np.testing.assert_array_equal(got, want, err_msg=n)
         elif n == "ACT_DTYPE":
             assert got == want
+        elif n == "CAMERAS":  # the port's own Cam class: compared field by field
+            assert list(got) == list(want)
+            for name, cam in want.items():
+                assert dataclasses.asdict(got[name]) == dataclasses.asdict(cam), name
         else:
             assert got == want and type(got) is type(want), n
 

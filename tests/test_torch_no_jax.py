@@ -103,6 +103,22 @@ _SCRIPT = textwrap.dedent(
     _, r, _, obs, t = sim.k_step({"eer_pos": np.zeros(3), "eer_orn": np.zeros(3),
                                   "grip_r": np.zeros(1)})
     assert sorted(obs) == sorted(cfg.obs_list) and abs(t - 0.02) < 1e-6
+    # the vision slice: a frame, the vision cost, the zoo, a camera shell
+    from gym_kmanip_torch import zoo
+    from gym_kmanip_torch.constants import CAMERAS
+    from gym_kmanip_torch.mpc.vision_cost import init_cost_params, make_vision_cost
+    from gym_kmanip_torch.render.raycast import render_camera
+    img = render_camera(m, "top", b.qpos, b.cube_pos, b.cube_quat, 8, 10)
+    assert img.shape == (3, 8, 10, 3) and img.dtype == torch.uint8
+    c = make_vision_cost(m, init_cost_params(0, 8, 10, device="cpu"), "top", 8, 10)(b, None, None)
+    assert c.shape == (3,) and bool(torch.isfinite(c).all())
+    policy, meta = zoo.load_policy("bc_pixels_solo", device="cpu")
+    assert policy(s).shape == (m.nu,) and meta["arch"] == "bc_pixels_cnn"
+    vcfg = CONFIGS["KManipSoloArmVision"]
+    vshell = types.SimpleNamespace(cfg=vcfg, obs_list=list(vcfg.obs_list),
+                                   cameras=[CAMERAS["grip_r"]], np_random=np.random.default_rng(0))
+    _, _, _, obs, _ = KManipEnvSim(vshell, device="cpu").k_reset()
+    assert obs["camera/grip_r"].shape == (40, 60, 3)
     try:
         kenv.register()
         raise AssertionError("register() ran without gymnasium")
@@ -124,4 +140,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     ok, n_modules = proc.stdout.split()[-2:]
-    assert ok == "OK" and int(n_modules) >= 30
+    assert ok == "OK" and int(n_modules) >= 35

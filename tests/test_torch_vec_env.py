@@ -6,7 +6,8 @@ independent spawns, autoreset with gymnasium 0.29's final observation), a
 vec env of N envs against N single-env steps of
 `make_task(ik_host64=False)` on the same spawns and actions (the batched
 TRF's solutions equal: it solves each item as it would alone), every
-non-vision id, the vision ids' refusal, and two tiny PPO updates.
+non-vision id, the vision ids' camera frames at render_hw, and tiny PPO
+updates in state and vision mode.
 """
 
 import dataclasses
@@ -131,16 +132,74 @@ def test_vec_env_steps_every_state_id(env_id):
 
 
 def test_vision_ids_raise():
-    for env_id in ("KManipSoloArmVision", "KManipDualArmVision", "KManipTorsoVision"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            KManipVecEnv(env_id, num_envs=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        KManipVecEnv("KManipSoloArm", num_envs=2, device="cpu", render_hw=(16, 16))
-    mod = importlib.import_module("gym_kmanip_torch.examples.12_train_vec_rl")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        mod.train(vision=True, device="cpu")
+    """The *Vision ids no longer raise (Queue 1 item 6a): each builds,
+    resets and steps with its cameras at render_hw; render_hw on a state
+    id renders nothing; an unknown id still raises."""
+    for env_id in config.VISION_ENV_IDS:
+        env = KManipVecEnv(env_id, num_envs=2, device="cpu", render_hw=(8, 10))
+        env.reset()
+        obs, r, _, _, _ = env.step(_actions(env.cfg, 2, np.random.default_rng(1)))
+        cams = [o for o in env.cfg.obs_list if "camera" in o]
+        assert [c.log_name for c in env.cameras] == cams and len(cams) >= 2
+        for name in cams:
+            assert obs[name].shape == (2, 8, 10, 3) and obs[name].dtype == torch.uint8
+        assert bool(torch.isfinite(r).all())
+    obs = KManipVecEnv("KManipSoloArm", num_envs=2, device="cpu", render_hw=(16, 16)).reset()
+    assert sorted(obs) == sorted(config.CONFIGS["KManipSoloArm"].obs_list)
     with pytest.raises(KeyError):
         KManipVecEnv("KManipNoSuchEnv", num_envs=2, device="cpu")
+
+
+def test_vec_env_vision_renders_batch():
+    """KManipSoloArmVision at render_hw = (16, 20) (tests/test_vec_env.py:
+    73-95): the frames of every env, after the reset, a step and the
+    autoreset, equal the raycaster's render of the returned states, and
+    the final observation carries the ended episode's frames."""
+    from gym_kmanip_torch.render.raycast import render_camera
+
+    env = KManipVecEnv("KManipSoloArmVision", num_envs=3, seed=0, device="cpu",
+                       render_hw=(16, 20))
+
+    def check(obs, states):
+        for cam in env.cameras:
+            img = obs[cam.log_name]
+            assert img.shape == (3, 16, 20, 3) and img.dtype == torch.uint8
+            assert float(img.float().std()) > 0
+            want = render_camera(env.model, cam.name, states.qpos, states.cube_pos,
+                                 states.cube_quat, 16, 20)
+            assert torch.equal(img, want), cam.name
+
+    check(env.reset(), env._states)
+    acts = _actions(env.cfg, 3)
+    obs, _, _, trunc, _ = env.step(acts)
+    check(obs, env._states)
+    env._steps[:] = k.MAX_EPISODE_STEPS - 1  # the next step truncates every env
+    pre = env._states
+    obs, _, _, trunc, info = env.step(acts)
+    assert trunc.all()
+    check(obs, env._states)
+    assert float((env._states.cube_pos - pre.cube_pos).abs().max()) > 1e-4  # fresh spawns
+    final = info["final_observation"][0]
+    assert final["camera/grip_r"].shape == (16, 20, 3)
+    assert not torch.equal(final["camera/head"], obs["camera/head"][0])
+    env.close()
+
+
+def test_ppo_vision_update_runs():
+    """Example 12 --vision: CNNPolicy on KManipSoloArmVision's grip-camera
+    frames at VISION_HW, one PPO update (tiny N and T) with finite losses
+    and every parameter moved."""
+    mod = importlib.import_module("gym_kmanip_torch.examples.12_train_vec_rl")
+    lines = []
+    policy, mrs = mod.train(env_id=mod.VISION_ENV, vision=True, n_updates=1, n_envs=2,
+                            t_rollout=2, seed=0, log=lines.append, device="cpu")
+    assert isinstance(policy, mod.CNNPolicy)
+    assert len(mrs) == 1 and np.isfinite(mrs[0])
+    assert np.isfinite(float(lines[0].split("loss")[-1]))
+    torch.manual_seed(0)
+    init = mod.CNNPolicy(policy.mean.out_features)
+    assert all(float((a - b).detach().abs().max()) > 0
+               for a, b in zip(policy.parameters(), init.parameters()))
 
 
 def test_ppo_training_runs():

@@ -1,12 +1,13 @@
 """The port's vec env and example 12's PPO update against the JAX package.
 
 Two module-scoped JAX programs, each jitted once:
-- JAX's `KManipVecEnv("KManipSoloArm", 4)`: its `_reset_all` and 3 seeded
+- JAX's `KManipVecEnv("KManipSoloArm", 2)`: its `_reset_all` and 3 seeded
   steps of its `_step_all` (the vmapped decode with the float32 TRF,
   `control_step` and reward), whose spawns and pre-step states are fed to
   the port's `KManipVecEnv` (teacher-forced: each port step starts from
-  JAX's state before it). This fixture is most of the file's ~80 s: JAX's
-  vmapped step compiles in ~40 s and runs 5-10 s a step on the CPU.
+  JAX's state before it). This fixture is most of the file's time: JAX's
+  vmapped step compiles in ~40 s and runs ~5 s a step at N = 2 on the CPU
+  (N = 2, not 4, to keep the tier-1 run inside its time limit).
 - One `ppo_update` of example 12 on a seeded batch, from flax weights that
   `mlp_policy_from_flax` carries over.
 
@@ -39,7 +40,7 @@ from gym_kmanip_torch.env.vec_env import KManipVecEnv
 
 torch.set_num_threads(1)
 
-N, STEPS = 4, 3
+N, STEPS = 2, 3
 SIZES = {"eer_pos": 3, "eer_orn": 3, "grip_r": 1}
 
 
