@@ -2,7 +2,8 @@
 
 A copy of the values in `gym_kmanip_tpu/constants.py` (physics, contact,
 limit, cube, table and reward constants, robot home poses, and the env's
-action scales, masks, spawn range and IK weights, and the camera specs),
+action scales, masks, spawn range and IK weights, the camera specs, and
+the HDF5 logger's chunk cache and data directory),
 so the port needs neither JAX nor the JAX package at run time.
 `tests/test_torch_models.py` holds every value here equal to the JAX
 package's.
@@ -22,6 +23,12 @@ ASSETS_DIR: str = os.path.join(
     "gym_kmanip_tpu",
     "assets",
 )
+
+# recorded episodes (env/env_base.py's log directories): the JAX package's
+# data directory, so that the two packages' examples read each other's
+# episode files
+DATA_DIR: str = os.path.join(os.path.dirname(ASSETS_DIR), "data")
+DATE_FORMAT: str = "%mm%dd%Yy_%Hh%Mm"
 
 SOLO_ARM_MJCF: str = "_env_solo_arm.xml"
 DUAL_ARM_MJCF: str = "_env_dual_arm.xml"
@@ -55,6 +62,9 @@ IK_JAC_RAD: float = 0.02
 IK_JAC_REG: float = 9e-3
 # iterations of the fixed-budget Levenberg-Marquardt IK (solvers/ik.ik)
 IK_MAX_ITERS: int = 12
+
+# HDF5 episode files (log/log_h5py.py): the chunk cache of an open file
+H5PY_CHUNK_SIZE_BYTES: int = 1024**2 * 2
 
 # Gym space dtypes
 OBS_DTYPE: np.dtype = np.float64

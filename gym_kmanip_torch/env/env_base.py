@@ -8,15 +8,21 @@ card unless `device` says otherwise).
 gymnasium is imported lazily: `KManipEnv` is built on first access of the
 name (`from gym_kmanip_torch.env.env_base import KManipEnv`, or gymnasium's
 entry point), so importing this module needs no gymnasium, as on a GPU host
-that has none. The logging side-cars (`log_h5py`, `log_rerun`) and the
-real-robot backend (`sim=False`) are ROADMAP.md Queue 1 item 8 and raise.
-Camera observations are `Box(0, 255, (h, w, 3), uint8)` at the Cam spec's
-size, and `render()` returns the top camera's frame.
+that has none. `log_h5py=True` records each episode as an ACT-layout HDF5
+file (log/log_h5py.py) under `constants.DATA_DIR/<log_prefix>.<uuid>.<date>`,
+the directory read from the constants module when the env is made. The
+rerun logger (`log_rerun`) and the real-robot backend (`sim=False`) are
+ROADMAP.md Queue 1 item 2 and raise. Camera observations are
+`Box(0, 255, (h, w, 3), uint8)` at the Cam spec's size, and `render()`
+returns the top camera's frame.
 """
 
 import functools
+import os
 import time
+import uuid
 from collections import OrderedDict as ODict
+from datetime import datetime
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -24,6 +30,7 @@ from numpy.typing import NDArray
 
 from gym_kmanip_torch import constants as k
 from gym_kmanip_torch.env.config import EnvConfig
+from gym_kmanip_torch.log import log_h5py
 
 
 def __getattr__(name):
@@ -62,10 +69,10 @@ def _env_class():
             device: str = "cuda",
         ):
             super().__init__()
-            if log_h5py or log_rerun or not sim:
+            if log_rerun or not sim:
                 raise NotImplementedError(
-                    "the logging side-cars (log_h5py, log_rerun) and the real-robot "
-                    "backend (sim=False) are not ported yet: ROADMAP.md Queue 1 item 8")
+                    "the rerun logger (log_rerun) and the real-robot backend (sim=False) "
+                    "are not ported yet: ROADMAP.md Queue 1 item 2")
             if obs_list is None:
                 obs_list = ["q_pos", "q_vel", "cube_pos", "cube_orn", "camera/top",
                             "camera/head", "camera/grip_l", "camera/grip_r"]
@@ -89,6 +96,12 @@ def _env_class():
                                          for o in obs_list if "camera" in o]
             self.log_rerun: bool = log_rerun
             self.log_h5py: bool = log_h5py
+            self.h5py_f = None
+            if log_h5py:
+                name = "{}.{}.{}".format(log_prefix, str(uuid.uuid4())[:6],
+                                         datetime.now().strftime(k.DATE_FORMAT))
+                self.log_dir = os.path.join(k.DATA_DIR, name)
+                os.makedirs(self.log_dir, exist_ok=True)
             self.mjcf_filename: str = mjcf_filename
             self.urdf_filename: str = urdf_filename
 
@@ -171,6 +184,11 @@ def _env_class():
             self.info["reward"] = reward
             self.info["is_success"] = False
             self.info["terminated"] = terminated
+            if self.log_h5py:
+                log_h5py.end(self.h5py_f)  # an episode left open by a reset
+                self.h5py_f = log_h5py.new(self.log_dir, self.info)
+                for cam in self.cameras:
+                    log_h5py.cam(self.h5py_f, cam)
             return observation, self.info
 
         def step(self, action):
@@ -183,9 +201,14 @@ def _env_class():
             self.info["reward"] = reward
             self.info["is_success"] = bool(reward > k.REWARD_SUCCESS_THRESHOLD)
             self.info["terminated"] = terminated
+            if self.log_h5py:
+                log_h5py.step(self.h5py_f, action, observation, self.info)
             return observation, reward, terminated, False, self.info
 
         def close(self):
+            if self.log_h5py:
+                log_h5py.end(self.h5py_f)
+                self.h5py_f = None
             self.env.k_close()
             super().close()
 

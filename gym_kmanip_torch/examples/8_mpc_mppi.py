@@ -7,7 +7,7 @@ cost (fingertip-to-cube distance, touch and lift bonuses), each solve's
 first control executed on the plant.
 
 The JAX example shards the samples over every local chip; that needs the
-port's `torch.distributed` fan-out (ROADMAP.md Queue 1 item 7), so
+port's `torch.distributed` fan-out (ROADMAP.md Queue 1 item 1), so
 `sharded=True` raises.
 
     python -m gym_kmanip_torch.examples.8_mpc_mppi
@@ -51,7 +51,7 @@ def main(horizon: int = HORIZON, n_samples: int = N_SAMPLES,
     if sharded:
         raise NotImplementedError(
             "sharding the samples over devices needs the torch.distributed fan-out, which is "
-            "not ported yet: ROADMAP.md Queue 1 item 7")
+            "not ported yet: ROADMAP.md Queue 1 item 1")
     model = get_model("solo_arm")
     cost_fn = make_cost(model)
     # full-fidelity rollouts: contact at 20 ms substeps is numerically

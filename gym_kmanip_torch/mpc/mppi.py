@@ -110,6 +110,21 @@ def init_mppi(model: RobotModel, cfg: MPPIConfig, seed: int = 0,
     return MPPIState(nominal=home.repeat(cfg.horizon, 1), generator=gen)
 
 
+def rewinder(mppi_state: MPPIState) -> Callable[[], MPPIState]:
+    """() -> `mppi_state` with its generator set back to the state it has
+    now. The JAX package starts every episode from one immutable MPPIState,
+    so every episode sees the same nominal and the same noise stream; the
+    generator here advances in place, and each call of the returned function
+    rewinds it."""
+    saved = mppi_state.generator.get_state()
+
+    def start() -> MPPIState:
+        mppi_state.generator.set_state(saved)
+        return mppi_state
+
+    return start
+
+
 def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
                sim_state: SimState, cost_fn: Callable,
                eps: Optional[torch.Tensor] = None, substep_fn: Callable = substep,

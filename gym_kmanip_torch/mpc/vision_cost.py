@@ -10,20 +10,30 @@ substep launches.
 The networks are the JAX package's flax modules as `nn.Module`s;
 `cost_cnn_from_flax` and `cube_pos_cnn_from_flax` carry flax parameters
 (numpy arrays) into them (utils/flax_layers.py: the SAME padding, the
-flatten order and the kernel layouts). Fitting them is training, which
-the port does not do yet: `fit_distance_cost` and `fit_cube_pos_estimator`
-raise (ROADMAP.md Queue 1 item 6b).
+flatten order and the kernel layouts).
+
+`fit_distance_cost` and `fit_cube_pos_estimator` train them on rendered
+frames of random (arm pose, cube spawn) pairs, as the JAX package does:
+Adam on optax's exponential decay (utils/optim.py), full batches for the
+distance cost, minibatches drawn with replacement for the cube estimator.
+Every draw (poses, cubes, initial weights, minibatch indices) comes from
+one CPU `torch.Generator` seeded with `seed`, so the card and the CPU fit
+on the same data; the frames are rendered on the device in chunks.
 """
 
-from typing import Callable
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from gym_kmanip_torch import constants as k
 from gym_kmanip_torch.dynamics.state import SimState, StepAux
 from gym_kmanip_torch.models import canonical_device
 from gym_kmanip_torch.models.spec import RobotModel
-from gym_kmanip_torch.render.raycast import render_camera
+from gym_kmanip_torch.ops import kinematics as kin
+from gym_kmanip_torch.render.raycast import render_camera, render_chunked
+from gym_kmanip_torch.utils.optim import adam, exponential_decay, mse_step
 from gym_kmanip_torch.utils.flax_layers import (
     SameConv, dense, flatten_hwc, flax_init_, images_nchw, inner, load_conv, same_side)
 
@@ -122,17 +132,124 @@ def init_cost_params(seed: int = 0, height: int = 40, width: int = 60,
     return net.to(canonical_device(device))
 
 
-def _training_not_ported(name: str):
-    return NotImplementedError(
-        f"{name} trains a CNN on rendered frames; training is not ported yet: ROADMAP.md "
-        f"Queue 1 item 6b")
+def _pose_bounds(model: RobotModel, around_home: Optional[float]):
+    """Joint sampling bounds: the joint ranges clipped to +-3.14, and to
+    home +- around_home (None: the full clipped range)."""
+    lo = model.jnt_range[:, 0].clip(-3.14).astype(np.float32)
+    hi = model.jnt_range[:, 1].clip(max=3.14).astype(np.float32)
+    if around_home is not None:
+        home = model.home_qpos.astype(np.float32)
+        lo = np.maximum(lo, home - np.float32(around_home))
+        hi = np.minimum(hi, home + np.float32(around_home))
+    return torch.as_tensor(lo), torch.as_tensor(hi)
 
 
-def fit_distance_cost(*args, **kwargs):
-    """Self-supervised fit of CostCNN to the EE-cube distance (training)."""
-    raise _training_not_ported("fit_distance_cost")
+def _uniform(gen: torch.Generator, shape, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return lo + (hi - lo) * torch.rand(shape, generator=gen)
 
 
-def fit_cube_pos_estimator(*args, **kwargs):
-    """Fit of CubePosCNN to the cube position from overhead frames (training)."""
-    raise _training_not_ported("fit_cube_pos_estimator")
+def draw_examples(model: RobotModel, gen: torch.Generator, n_samples: int,
+                  around_home: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(qs (n, nq), cubes (n, 3)) on the CPU: poses uniform within the
+    bounds of `_pose_bounds`, cubes uniform over CUBE_SPAWN_RANGE."""
+    lo, hi = _pose_bounds(model, around_home)
+    spawn = torch.as_tensor(k.CUBE_SPAWN_RANGE, dtype=torch.float32)
+    qs = _uniform(gen, (n_samples, model.nq), lo, hi)
+    cubes = _uniform(gen, (n_samples, 3), spawn[:, 0], spawn[:, 1])
+    return qs, cubes
+
+
+def _frames(model, cam_name, qs, cubes, height, width) -> torch.Tensor:
+    """(N, h, w, 3) float32 frames in [0, 1] with the identity cube quaternion."""
+    quat = torch.zeros_like(cubes[:, :1]).expand(-1, 4).clone()
+    quat[:, 0] = 1.0
+    return render_chunked(model, cam_name, qs, cubes, quat, height, width).float() / 255.0
+
+
+def _losses_out(losses: Optional[List[float]], trace: List[torch.Tensor]):
+    if losses is not None and trace:
+        losses.extend(torch.stack(trace).cpu().tolist())  # one copy to the host
+
+
+def fit_distance_cost(model: RobotModel, seed: int = 0, n_samples: int = 256,
+                      n_steps: int = 200, height: int = 40, width: int = 60,
+                      cam_name: str = "grip_r", around_home: Optional[float] = 0.5,
+                      device="cuda", draws=None,
+                      losses: Optional[List[float]] = None) -> CostCNN:
+    """Self-supervised fit of a CostCNN to the true EE-cube distance from
+    `cam_name` frames of random arm poses (home +- `around_home` rad,
+    clipped to the ranges; None: the full range) and cube spawns, so the
+    learned cost falls as the gripper nears the cube. Full-batch Adam on
+    exponential_decay(3e-3, n_steps // 4, 0.5), which gets through the
+    constant-mean plateau and then anneals. `draws` injects (qs, cubes)
+    in place of the generator's; `losses` (a list) receives each step's
+    loss."""
+    device = canonical_device(device)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    qs, cubes = draw_examples(model, gen, n_samples, around_home) if draws is None else draws[:2]
+    qs, cubes = (torch.as_tensor(x, dtype=torch.float32).to(device) for x in (qs, cubes))
+    imgs = _frames(model, cam_name, qs, cubes, height, width)
+    xpos, xquat, _ = kin.fk(model, qs)
+    ee, _ = kin.site_pose(model, xpos, xquat, "eer_site")
+    dists = torch.linalg.vector_norm(ee - cubes, dim=-1)
+
+    net = CostCNN(height, width)
+    flax_init_(net, gen)
+    net = net.to(device)
+    opt, sched = adam(net.parameters(), exponential_decay(3e-3, max(n_steps // 4, 1), 0.5))
+    trace = [mse_step(net, opt, sched, dists, imgs) for _ in range(n_steps)]
+    _losses_out(losses, trace)
+    return net
+
+
+def fit_cube_pos_estimator(model: RobotModel, seed: int = 0, n_samples: int = 512,
+                           n_steps: int = 1500, height: int = 64, width: int = 96,
+                           cam_name: str = "top", around_home: float = 0.4, batch: int = 128,
+                           device="cuda", draws=None, init=None,
+                           losses: Optional[List[float]] = None
+                           ) -> Tuple[CubePosCNN, Callable]:
+    """Perception for pick-from-pixels: regress the cube's world position
+    from `cam_name` frames of arm poses near home (the regime of a pick
+    episode's first frames) and spawns over the full CUBE_SPAWN_RANGE, in
+    coordinates normalized to the spawn box. Adam on exponential_decay(3e-3,
+    n_steps // 4, 0.5) over minibatches of `batch` indices drawn with
+    replacement. Returns (net, estimate): estimate(img01 (..., h, w, 3)) ->
+    (..., 3) cube position in world metres. `draws` injects (qs, cubes,
+    idx (n_steps, batch)) and `init` the initial weights (flax
+    parameters); `losses` (a list) receives each step's loss.
+
+    Whether n_steps leave the constant-mean plateau (the loss at the
+    targets' variance, ~1/3) depends on the draws, in the JAX package as
+    here: at 256 frames and 800 steps, JAX's PRNGKey(1) stays on it."""
+    device = canonical_device(device)
+    spawn = torch.as_tensor(k.CUBE_SPAWN_RANGE, dtype=torch.float32)
+    mid = ((spawn[:, 0] + spawn[:, 1]) / 2).to(device)
+    half = torch.clamp_min((spawn[:, 1] - spawn[:, 0]) / 2, 1e-3).to(device)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    qs, cubes = draw_examples(model, gen, n_samples, around_home) if draws is None else draws[:2]
+    qs, cubes = (torch.as_tensor(x, dtype=torch.float32).to(device) for x in (qs, cubes))
+    imgs = _frames(model, cam_name, qs, cubes, height, width)
+    targets = (cubes - mid) / half
+
+    if init is None:
+        net = CubePosCNN(height, width)
+        flax_init_(net, gen)
+        net = net.to(device)
+    else:
+        net = cube_pos_cnn_from_flax(init, device=device)
+    if draws is None:
+        idx = torch.randint(0, qs.shape[0], (n_steps, batch), generator=gen)
+    else:
+        idx = torch.as_tensor(draws[2], dtype=torch.long)
+    idx = idx.to(device)
+    opt, sched = adam(net.parameters(), exponential_decay(3e-3, max(n_steps // 4, 1), 0.5))
+    trace = [mse_step(net, opt, sched, targets[rows], imgs[rows]) for rows in idx]
+    _losses_out(losses, trace)
+
+    @torch.no_grad()
+    def estimate(img01: torch.Tensor) -> torch.Tensor:
+        return net(img01) * half + mid
+
+    return net, estimate

@@ -421,6 +421,17 @@ def render_camera(model: RobotModel, cam_name: str, qpos: torch.Tensor,
     return img.reshape(batch + (height, width, 3))
 
 
+def render_chunked(model: RobotModel, cam_name: str, qpos: torch.Tensor,
+                   cube_pos: torch.Tensor, cube_quat: torch.Tensor, height: int,
+                   width: int, chunk: int = 128) -> torch.Tensor:
+    """`render_camera` of N states (qpos (N, nq), cube_pos (N, 3),
+    cube_quat (N, 4)) in chunks of `chunk` states -> (N, height, width, 3)
+    uint8: a (chunk, P, n_prim) hit matrix instead of an (N, P, n_prim) one."""
+    return torch.cat([render_camera(model, cam_name, qpos[i:i + chunk], cube_pos[i:i + chunk],
+                                    cube_quat[i:i + chunk], height, width)
+                      for i in range(0, qpos.shape[0], chunk)])
+
+
 def make_render_fn(model: RobotModel, cam_name: str, height: int, width: int):
     """The renderer of one camera at one size: (qpos, cube_pos, cube_quat)
     -> (..., height, width, 3) uint8."""

@@ -14,6 +14,10 @@ file fails loudly instead of mis-loading.
     raycaster, and the network reads the frame and the normalized (qpos,
     qvel), never the cube state.
 
+`bc_mlp` and `bc_pixels_cnn` build the two architectures fresh, with
+flax's default init (LeCun normal kernels, zero biases) drawn from a seeded
+torch generator: examples 13 and 15 train them.
+
 `load_policy` returns `policy(SimState) -> ctrl` over any leading batch
 of states (one call serves N robots), on the card unless `device` says
 otherwise, with the deployment math of the JAX loader: the tanh output
@@ -32,7 +36,7 @@ from gym_kmanip_torch import constants as k
 from gym_kmanip_torch.models import canonical_device, get_model
 from gym_kmanip_torch.render.raycast import render_camera
 from gym_kmanip_torch.utils.flax_layers import (
-    SameConv, dense, flatten_hwc, images_nchw, inner, load_conv)
+    SameConv, dense, flatten_hwc, flax_init_, images_nchw, inner, load_conv, same_side)
 
 _ZOO_DIR = os.path.join(os.path.dirname(k.ASSETS_DIR), "zoo")
 _FORMAT_VERSION = 1
@@ -77,6 +81,33 @@ class BCPixelsCNN(nn.Module):
         x = torch.cat([x, proprio.reshape(x.shape[0], -1)], dim=-1)
         x = torch.tanh(self.dense2(torch.tanh(self.dense1(x))))
         return x.reshape(lead + x.shape[-1:])
+
+
+def _seeded(net: nn.Module, seed: int, device) -> nn.Module:
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    flax_init_(net, gen)
+    return net.to(canonical_device(device))
+
+
+def bc_mlp(out_dim: int, hidden: int = 256, depth: int = 2, *, in_dim: int, seed: int = 0,
+           device="cuda") -> BCMLP:
+    """A fresh `bc_mlp` for `in_dim` inputs, flax's init from `seed`."""
+    sizes = [in_dim] + [hidden] * depth + [out_dim]
+    return _seeded(BCMLP([nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:])]), seed,
+                   device)
+
+
+def bc_pixels_cnn(out_dim: int, hidden: int = 256, *, img_hw: Tuple[int, int],
+                  proprio_dim: int, seed: int = 0, device="cuda") -> BCPixelsCNN:
+    """A fresh `bc_pixels_cnn` for img_hw frames and `proprio_dim`
+    proprioception inputs, flax's init from `seed`."""
+    h, w = img_hw
+    for _ in range(3):
+        h, w = same_side(h), same_side(w)
+    net = BCPixelsCNN(nn.Linear(h * w * 64, hidden), nn.Linear(hidden + proprio_dim, hidden),
+                      nn.Linear(hidden, out_dim))
+    return _seeded(net, seed, device)
 
 
 def bc_mlp_from_flax(params) -> BCMLP:

@@ -741,3 +741,53 @@ def test_vision_serving_on_card_launches_k1(cuda):
     span = m.ctrl_range[:, 1] - m.ctrl_range[:, 0]
     gap = np.abs(u - policy_cpu(s_cpu).numpy())
     assert np.all(gap <= 1e-5 * span), gap / span
+
+
+def test_training_steps_on_card_match_cpu(cuda):
+    """One Adam step of each network the learning path trains (CostCNN and
+    CubePosCNN in the fits, example 13's BC-MLP, example 15's BCPixelsCNN)
+    on the card equals the CPU's step at 1e-5, TF32 off, from one carried
+    optimizer state (drawn moments, count 3): Adam's update from zero
+    moments is ~lr * sign(g), which rounding can flip where g is near 0."""
+    import copy
+
+    from gym_kmanip_torch import zoo
+    from gym_kmanip_torch.mpc import vision_cost as vc
+    from gym_kmanip_torch.utils import flax_layers, optim
+    from torch_optim_carry import adam_state, draw_moments, flax_tree, load_adam_state
+
+    rng = np.random.default_rng(21)
+    gen = torch.Generator().manual_seed(21)
+    f32 = lambda *shape: torch.as_tensor(rng.uniform(0, 1, shape).astype(np.float32))  # noqa: E731
+    idx = torch.as_tensor(rng.integers(0, 16, 8))
+    frames = torch.as_tensor(rng.integers(0, 256, (16, 32, 48, 3)).astype(np.uint8))
+    # (network, (target, *inputs)) as the fits' and examples 13 and 15's loops pass them
+    cases = {
+        "cost": (vc.CostCNN(24, 32), (f32(16), f32(16, 24, 32, 3))),
+        "cube_pos": (vc.CubePosCNN(32, 48), (f32(16, 3)[idx], f32(16, 32, 48, 3)[idx])),
+        "bc_mlp": (zoo.bc_mlp(10, 64, 2, in_dim=27, device="cpu"),
+                   (f32(16, 10)[idx], f32(16, 27)[idx])),
+        "bc_pixels": (zoo.bc_pixels_cnn(10, 64, img_hw=(32, 48), proprio_dim=20, device="cpu"),
+                      (f32(16, 10)[idx], frames[idx].float() / 255.0, f32(16, 20)[idx])),
+    }
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, (net, args) in cases.items():
+            flax_layers.flax_init_(net, gen)
+            mu, nu = draw_moments(flax_tree(net), rng)
+            out = {}
+            for dev in ("cpu", cuda):
+                n = copy.deepcopy(net).to(dev)
+                opt, sched = optim.adam(n.parameters(), optim.exponential_decay(3e-3, 2, 0.5))
+                load_adam_state(opt, sched, n, 3, mu, nu)
+                loss = optim.mse_step(n, opt, sched, *(a.to(dev) for a in args))
+                out[str(dev)] = (float(loss), adam_state(opt, n))
+            (l_cpu, (_, _, _, p_cpu)), (l_gpu, (_, _, _, p_gpu)) = out["cpu"], out[str(cuda)]
+            np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5, err_msg=name)
+            for layer, leaves in p_cpu.items():
+                for leaf, w in leaves.items():
+                    np.testing.assert_allclose(p_gpu[layer][leaf], w, rtol=0, atol=1e-5,
+                                               err_msg=f"{name} {layer}/{leaf}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -249,7 +249,8 @@ def test_out_of_bounds_warm_start_short_circuits():
 def test_constants_and_configs_match_jax():
     names = [n for n in dir(tk) if n.isupper() and n != "ASSETS_DIR"]
     for n in ("EE_POS_DELTA", "Q_POS_DELTA", "CTRL_ALPHA", "CUBE_SPAWN_RANGE", "MAX_Q_VEL",
-              "IK_JAC_REG", "MOCAP_ID_L", "Q_TORSO_KEYS", "TORSO_URDF"):
+              "IK_JAC_REG", "MOCAP_ID_L", "Q_TORSO_KEYS", "TORSO_URDF", "H5PY_CHUNK_SIZE_BYTES",
+              "DATE_FORMAT", "DATA_DIR"):
         assert n in names, n
     for n in names:
         want, got = getattr(jk, n), getattr(tk, n)
@@ -278,11 +279,11 @@ def test_constants_and_configs_match_jax():
 
 
 def test_unported_options_raise():
-    """Camera observations and k_render (Queue 1 item 6a) no longer raise:
-    the backend renders a duck-typed shell's cameras and renders any camera
-    on request. Training the vision CNNs (item 6b) still raises, as do the
-    side-cars (item 8, test_reset_determinism_truncation_and_info);
-    ik_host64=False (item 5) does not."""
+    """Camera observations and k_render no longer raise: the backend renders
+    a duck-typed shell's cameras and renders any camera on request. Nor do
+    the vision fits (a fit of one step each here) or ik_host64=False; the
+    rerun logger and the real robot (Queue 1 item 2) still raise
+    (test_reset_determinism_truncation_and_info)."""
     import types
 
     from gym_kmanip_torch.env.env_sim import KManipEnvSim
@@ -304,9 +305,13 @@ def test_unported_options_raise():
     small = dataclasses.replace(tk.CAMERAS["head"], w=20, h=16)
     frame = sim.k_render(small)
     assert frame.shape == (16, 20, 3) and frame.dtype == np.uint8 and frame.std() > 0
-    for fit in (vision_cost.fit_distance_cost, vision_cost.fit_cube_pos_estimator):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            fit(get_model("solo_arm"), 0)
+    m = get_model("solo_arm")
+    net = vision_cost.fit_distance_cost(m, 0, n_samples=2, n_steps=1, height=8, width=10,
+                                        cam_name="top", device="cpu")
+    assert isinstance(net, vision_cost.CostCNN)
+    net, estimate = vision_cost.fit_cube_pos_estimator(m, 0, n_samples=2, n_steps=1, height=8,
+                                                       width=10, batch=2, device="cpu")
+    assert estimate(torch.zeros(8, 10, 3)).shape == (3,)
     for env_id in ("KManipSoloArm", "KManipSoloArmQPos"):
         make_task(dataclasses.replace(config.CONFIGS[env_id], ik_host64=False), device="cpu")
 
@@ -368,7 +373,7 @@ def test_env_checker(gym, env_id):
     env.close()
 
 
-def test_reset_determinism_truncation_and_info(gym):
+def test_reset_determinism_truncation_and_info(gym, tmp_path, monkeypatch):
     from gym_kmanip_torch.env.env_base import KManipEnv
 
     obs = []
@@ -398,10 +403,16 @@ def test_reset_determinism_truncation_and_info(gym):
     assert info["step"] == tk.MAX_EPISODE_STEPS
     assert abs(info["sim_time"] - tk.MAX_EPISODE_STEPS * tk.CONTROL_TIMESTEP) < 1e-4
     env.close()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", log_h5py=True)
+    # log_h5py: a log directory under DATA_DIR, read when the env is made
+    monkeypatch.setattr(tk, "DATA_DIR", str(tmp_path))
+    env = gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", log_h5py=True,
+                   log_prefix="p")
+    assert os.path.dirname(env.unwrapped.log_dir) == str(tmp_path)
+    assert os.path.basename(env.unwrapped.log_dir).startswith("p.")
+    assert env.unwrapped.info["act_dims"] == {"eer_pos": 3, "eer_orn": 3, "grip_r": 1}
+    env.close()
     for option in (dict(log_rerun=True), dict(sim=False)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
             gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", **option)
     # a camera in obs_list: a uint8 Box at the Cam spec's size
     env = gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu",

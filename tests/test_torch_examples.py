@@ -36,5 +36,5 @@ def test_example_8_mppi_closed_loop():
     ex = _example("8_mpc_mppi")
     out = ex.main(horizon=2, n_samples=8, n_control_steps=2, device="cpu")
     assert out["finite"] and np.isfinite(out["tip_cube_m"]) and out["hz"] > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         ex.main(sharded=True, device="cpu")

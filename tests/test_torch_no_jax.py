@@ -119,6 +119,22 @@ _SCRIPT = textwrap.dedent(
                                    cameras=[CAMERAS["grip_r"]], np_random=np.random.default_rng(0))
     _, _, _, obs, _ = KManipEnvSim(vshell, device="cpu").k_reset()
     assert obs["camera/grip_r"].shape == (40, 60, 3)
+    # the learning slice: a step of each fit, an episode of the HDF5 logger
+    import os, tempfile
+    from gym_kmanip_torch.log import log_h5py
+    from gym_kmanip_torch.mpc.vision_cost import fit_cube_pos_estimator, fit_distance_cost
+    net = fit_distance_cost(m, 0, n_samples=2, n_steps=1, height=8, width=10, cam_name="top",
+                            device="cpu")
+    _, estimate = fit_cube_pos_estimator(m, 0, n_samples=2, n_steps=1, height=8, width=10,
+                                         batch=2, device="cpu")
+    assert estimate(img[:2].float() / 255.0).shape == (2, 3)
+    d = tempfile.mkdtemp()
+    info = dict(sim=True, episode=0, q_len=m.nq, act_list=("ctrl",), act_dims={"ctrl": m.nu},
+                step=1)
+    f = log_h5py.new(d, info)
+    log_h5py.step(f, {"ctrl": s.ctrl}, {"q_pos": s.qpos, "q_vel": s.qvel}, info)
+    log_h5py.end(f)
+    assert os.path.exists(os.path.join(d, "episode_0.hdf5"))
     try:
         kenv.register()
         raise AssertionError("register() ran without gymnasium")
@@ -140,4 +156,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     ok, n_modules = proc.stdout.split()[-2:]
-    assert ok == "OK" and int(n_modules) >= 35
+    assert ok == "OK" and int(n_modules) >= 61

@@ -248,9 +248,3 @@ def test_vision_mppi_solve_scores_rollouts_with_the_vision_cost():
     assert bool(torch.isfinite(totals).all()) and float(totals.std()) > 0
     assert float(J) == float(totals.min())
     assert torch.equal(u0, cand[int(torch.argmin(totals))][0])
-
-
-def test_training_raises():
-    for fit in (vc.fit_distance_cost, vc.fit_cube_pos_estimator):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            fit(get_model("solo_arm"), 0)
