@@ -17,8 +17,8 @@ Phases (any failure raises, and the script exits non-zero):
   3. MPPI:        the solo-arm MPPI pick solve at H=50, K=256 through K1: 20
                   solves with the launch count checked, the kernel route
                   against the plain route on one injected noise draw at
-                  H=4, then solves/s of both routes (the plain route's over
-                  2 solves).
+                  H=4, then solves/s of both routes (the K1 route's over 3
+                  repeats of 10 solves, the plain route's over 2 solves).
   4. closed loop: the receding-horizon recipe of bench.py (H=20, K=256,
                   2 iterations, 10 substeps of 2 ms) against the plant
                   `control_step` for 30 steps.
@@ -63,7 +63,7 @@ Phases (any failure raises, and the script exits non-zero):
                   torch.linalg.solve); 5 solves with the launch counts per
                   solve checked (K5 50, K6 50, K7 200, K1 0), the staged route
                   against the plain route on one injected draw at H=4 (u0
-                  1e-5, J 1e-4, nominal 1e-5), solves/s (5 x 5 solves) beside
+                  1e-5, J 1e-4, nominal 1e-5), solves/s (3 x 3 solves) beside
                   the K1 and fused routes, and a torch.profiler breakdown of 2 solves
                   (device busy, kernel launches, the largest kernels). Then
                   K5's, K6's and K7's device time per launch
@@ -180,6 +180,25 @@ Phases (any failure raises, and the script exits non-zero):
                   per step or solve in the kernels line are read from each
                   part's counts. Every part runs before a missed bar fails
                   the phase.
+ 17. sharded:     the multi-device layer (gym_kmanip_torch/parallel/mesh.py),
+                  each line with the card's name and power limit: a
+                  one-rank NCCL group in this process, then two gloo ranks
+                  sharing the card, spawned (each with its rendezvous
+                  timeout, the parent's wait bounded; a failed or hung rank
+                  fails the phase). On each: global_elite's tie across ranks
+                  on the card (the smallest global index); example 8's MPPI
+                  solve (H=20, K=256, 2 iterations, 10 substeps of 2 ms,
+                  contact) sharded on one seeded noise draw against
+                  make_mppi_solver (u0 1e-5, J 1e-4 relative, nominal 1e-5),
+                  400 K1 launches a solve per rank at K / ranks and nothing
+                  else, each rank's first K1 launch replayed against the
+                  plain substep at phase 2's bands; phase 7's iLQR solve
+                  sharded over 4 problems against make_ilqr_solver problem
+                  by problem (controls 1e-5, costs 1e-5 relative), K1 10, K3
+                  11 and K4 10 launches a problem. Reported, not bars: MPPI
+                  solves/s single-device, one rank and two ranks, and iLQR
+                  problems/s (two ranks on one card measure the
+                  collectives' overhead, not scaling).
 Only the staged route moves the K5, K6 and K7 counters: every other phase,
 and every plain-version call, leaves them as they were.
 The kernels line, then the card's name and power limit (nvidia-smi), then
@@ -190,20 +209,24 @@ card's line, without the ok line, when a bar of phase 16 was missed.
 import copy
 import ctypes
 import dataclasses
+import datetime
 import functools
 import glob
 import importlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -227,6 +250,7 @@ from gym_kmanip_torch.ops import chol_solve_cuda, contacts_cuda, rnea_cuda  # no
 from gym_kmanip_torch.ops import kinematics as kin  # noqa: E402
 from gym_kmanip_torch.ops import linalg, sweep_floor_cuda  # noqa: E402
 from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda  # noqa: E402
+from gym_kmanip_torch.parallel import mesh as pmesh  # noqa: E402
 from gym_kmanip_torch.solvers import ik, ik_host, ilqr, trf  # noqa: E402
 from gym_kmanip_torch.render import raycast  # noqa: E402
 from gym_kmanip_torch.tools import exp_sweep_floor  # noqa: E402
@@ -586,10 +610,10 @@ def phase_mppi(model):
     check("mppi", "K1 route vs plain route at H=4: nominal", max_err(ms_k.nominal, ms_p.nominal),
           1e-5)
 
-    rates, ms = solves_per_sec(solver, ms, sim_state)
+    rates, ms = solves_per_sec(solver, ms, sim_state, n_solves=10, repeats=3)
     plain = make_mppi_solver(model, cfg, cost, substep_fn=engine._substep_torch)
     plain_rates, _ = solves_per_sec(plain, ms, sim_state, n_solves=2, repeats=1)
-    log("mppi", f"K1 route: {rate_line(rates)} x 20 solves")
+    log("mppi", f"K1 route: {rate_line(rates)} x 10 solves")
     log("mppi", f"plain route: {rate_line(plain_rates)} x 2 solves")
     return launches["K1"], rates
 
@@ -805,7 +829,7 @@ def phase_ilqr(model):
     r, launches, _ = solve_checked("ilqr", model, cfg, cost_xu, quad_xu, solve, s0, us,
                                 only(K1=10, K3=11, K4=10))
     rates = []
-    for _ in range(5):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
@@ -1267,8 +1291,8 @@ def phase_staged_mppi(model, cost, k1_rates, fused_rates):
     check("staged", "staged route vs plain route at H=4: nominal",
           max_err(ms_s.nominal, ms_p.nominal), 1e-5)
 
-    rates, ms = solves_per_sec(solver, ms, sim_state, n_solves=5)
-    log("staged", f"staged route: {rate_line(rates)} x 5 solves; K1 route "
+    rates, ms = solves_per_sec(solver, ms, sim_state, n_solves=3, repeats=3)
+    log("staged", f"staged route: {rate_line(rates)} x 3 solves; K1 route "
                   f"{statistics.median(k1_rates):.2f}, fused route "
                   f"{statistics.median(fused_rates):.2f} (same run)")
     busy, n_launch, by_kernel = device_profile(
@@ -1649,7 +1673,7 @@ def phase_lqr():
              ("K4 plain, no Gershgorin lift", functools.partial(
                  riccati_cuda.riccati_sweep_reference, gershgorin_lift=False)))
     out = {}
-    for name, horizon, n_solves in (("solo_arm", H, 3), ("torso", TORSO_H, 1)):
+    for name, horizon, n_solves in (("solo_arm", H, 2), ("torso", TORSO_H, 1)):
         model = get_model(name)
         s0, _, cost_xu, quad_xu, cfg, us = ilqr_setup(model, horizon)
         solvers = {key: ilqr.make_ilqr_solver(model, cfg._replace(**kw), cost_xu,
@@ -1676,7 +1700,7 @@ def phase_lqr():
             if not (np.all(np.isfinite(trace)) and np.all(np.diff(trace) <= 1e-5)):
                 raise AssertionError(f"lqr {name} {key}: the cost trace is not monotone")
             log("lqr", f"{name} H={horizon} {key}: trace {np.array2string(trace, precision=5)}")
-        for _ in range(3):
+        for _ in range(2):
             for key, solve in solvers.items():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2071,8 +2095,8 @@ def phase_vec():
                f"({solve_launches / max(stats['trials'], 1):.0f} per trial); per vec step: "
                f"{step_syncs} synchronizing calls, {step_launches:.0f} launches, device busy "
                f"{busy:.2f} ms of {step_ms:.2f} ({busy / step_ms:.1%})")
-    split = vec_split(env, actions[4:12])
-    log("vec", "split of a solo vec step (8 steps, synchronized, ms): " + ", ".join(
+    split = vec_split(env, actions[4:7])
+    log("vec", "split of a solo vec step (3 steps, synchronized, ms): " + ", ".join(
         f"{key} {v:.2f}" for key, v in split.items()))
 
     # example 12: one PPO update at N = 64, T = 16
@@ -2110,7 +2134,7 @@ VISION_VEC_STEPS = 8
 # example 10's solve (gym_kmanip_tpu/examples/10_vision_mpc.py:23-47)
 VISION_MPPI = MPPIConfig(horizon=10, n_samples=64, n_iters=1, noise_beta=0.9)
 VISION_MPPI_HW = (48, 64)
-VISION_MPPI_SOLVES = 20
+VISION_MPPI_SOLVES = 10
 ZOO_STEPS = 120
 
 
@@ -2474,7 +2498,7 @@ BC_RUN = dict(n_episodes=3, ep_len=80, n_samples=128, n_train=1500, n_evals=4)
 DAGGER_EP_LEN = 40  # one dagger_collect episode
 PIXELS_BC_STEPS = 200  # one example 15 `train`
 ZOO_EVALS, ZOO_SEED, ZOO_SLACK = 8, 7, 0.35
-EXPERT_SOLVES = 20
+EXPERT_SOLVES = 10
 
 ex10 = importlib.import_module("gym_kmanip_torch.examples.10_vision_mpc")
 ex13 = importlib.import_module("gym_kmanip_torch.examples.13_bc_pick")
@@ -2951,6 +2975,251 @@ def phase_learning():
                 pick_from_pixels=pixels, bc_pick=bc, zoo=zoo_rates), failures
 
 
+# phase 17: example 8's MPPI solve (H=20, K=256, 2 iterations, 10 substeps of
+# 2 ms, contact) and phase 7's iLQR problems, sharded
+SHARDED_MPPI = MPPIConfig(horizon=20, n_samples=K, n_iters=2, sigma=0.15, n_substeps=10,
+                          dt=constants.PHYSICS_TIMESTEP, noise_beta=0.9)
+SHARDED_RANKS = 2
+SHARDED_B = 4  # iLQR problems
+SHARDED_RATE = (3, 3)  # solves x repeats of each rate
+RENDEZVOUS_S, RANKS_WAIT_S = 120.0, 420.0
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_problem(model):
+    """Example 8's plant state and cost, the MPPI noise (n_iters, K, H, nu)
+    and phase 7's production iLQR set-up with SHARDED_B start states and
+    warm starts around it, all from seeds, on DEV."""
+    ex8 = importlib.import_module("gym_kmanip_torch.examples.8_mpc_mppi")
+    cfg = SHARDED_MPPI
+    sim = init_state(model, cube_pos=ex8.CUBE_SPAWN, device=DEV)
+    eps = torch.randn((cfg.n_iters, cfg.n_samples, cfg.horizon, model.nu),
+                      generator=torch.Generator().manual_seed(17)) * cfg.sigma
+    s0, _, cost_xu, quad_xu, icfg, us = ilqr_setup(model, H)
+    x0 = ilqr.flatten_state(s0, reduced=True).cpu().numpy()
+    rng = np.random.RandomState(17)
+    x0s = (x0[None] + 0.01 * rng.randn(SHARDED_B, x0.size)).astype(np.float32)
+    uss = (us.cpu().numpy()[None] + 0.01 * rng.randn(SHARDED_B, *us.shape)).astype(np.float32)
+    return dict(cost=ex8.make_cost(model), sim=sim, eps=eps.to(DEV), s0=s0, cost_xu=cost_xu,
+                quad_xu=quad_xu, icfg=icfg, x0s=torch.as_tensor(x0s, device=DEV),
+                uss=torch.as_tensor(uss, device=DEV))
+
+
+def timed_rates(fn, n, repeats):
+    rates = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    return rates
+
+
+def sharded_run(model, mesh):
+    """Phase 17's work on one rank of `mesh`: the elite's tie-break on the
+    card, the sharded MPPI solve on the injected noise with its launches
+    counted and its first K1 launch of each shape replayed against the plain
+    substep, its solves/s, and the sharded iLQR with its launches counted
+    and its problems/s. Prints nothing; returns numpy arrays and JSON."""
+    p = sharded_problem(model)
+    out = {}
+    local_k, w = 3, mesh.size
+    costs = torch.ones(w * local_k, device=DEV)
+    costs[local_k - 1] = costs[w * local_k - 1] = 0.5  # rank 0's and the last rank's last
+    cand = torch.arange(w * local_k * 4, dtype=torch.float32, device=DEV).reshape(-1, 4)
+    mine = slice(mesh.rank * local_k, (mesh.rank + 1) * local_k)
+    best, gmin = pmesh.global_elite(costs[mine], cand[mine], local_k, mesh)
+    out.update(elite_best=best.cpu().numpy(), elite_gmin=gmin.cpu().numpy())
+
+    solve = pmesh.make_sharded_mppi_solver(model, SHARDED_MPPI, p["cost"], mesh)
+    ms0 = init_mppi(model, SHARDED_MPPI, device=DEV)
+    solve(ms0, p["sim"], eps=p["eps"])  # builds the cached tensors
+    with launches_of("sharded MPPI", expected=SHARDED_MPPI.n_iters * SHARDED_MPPI.horizon
+                     * SHARDED_MPPI.n_substeps) as lo:
+        ms, u0, J = solve(ms0, p["sim"], eps=p["eps"])
+    out.update(mppi_u0=u0.cpu().numpy(), mppi_J=J.cpu().numpy(),
+               mppi_nominal=ms.nominal.cpu().numpy(), mppi_counts=json.dumps(lo.counts))
+    replays = []
+    for key, (args, _) in sorted(lo.k1.by_key.items()):
+        args = [a.contiguous() if torch.is_tensor(a) else a for a in args]
+        got = substep_cuda.substep_batched(*args)
+        want = substep_cuda.substep_batched_reference(*args)
+        errs = {n: float((g - w_).abs().max()) for n, g, w_ in zip(OUTS, got, want)
+                if n != "touch"}
+        replays.append(dict(K=key[-1], dt=key[1], contact=key[2], errs=errs,
+                            flips=int((got[3] != want[3]).sum())))
+    out["k1_replays"] = json.dumps(replays)
+    out["mppi_rates"] = np.array(timed_rates(lambda: solve(ms0, p["sim"], eps=p["eps"]),
+                                             *SHARDED_RATE))
+
+    isolve = pmesh.make_sharded_ilqr_solver(model, p["icfg"], p["cost_xu"], mesh, p["s0"],
+                                            SHARDED_B, quad_xu=p["quad_xu"])
+    isolve(p["x0s"], p["uss"])  # builds the cached tensors
+    reset_counts()
+    us, icosts, traces = isolve(p["x0s"], p["uss"])
+    torch.cuda.synchronize()
+    out.update(ilqr_us=us.cpu().numpy(), ilqr_costs=icosts.cpu().numpy(),
+               ilqr_traces=traces.cpu().numpy(), ilqr_counts=json.dumps(counts()))
+    out["ilqr_rates"] = SHARDED_B * np.array(timed_rates(lambda: isolve(p["x0s"], p["uss"]),
+                                                         1, 2))
+    return out
+
+
+def sharded_rank(rank, world, port, out_path):
+    """One rank of phase 17's group (spawned): joins through
+    127.0.0.1:`port` on DEV, where init_distributed picks gloo since the
+    ranks share the card, runs `sharded_run` and writes its results to
+    `out_path`."""
+    dev = pmesh.init_distributed(f"127.0.0.1:{port}", world, rank, timeout_s=RENDEZVOUS_S)
+    if dev != DEV or dist.get_backend() != "gloo":
+        raise AssertionError(f"rank {rank}: {dev} over {dist.get_backend()}, expected {DEV} "
+                             f"over gloo")
+    try:
+        np.savez(out_path, **sharded_run(get_model("solo_arm"), pmesh.make_mesh()))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world):
+    """`world` ranks of `sharded_rank`, spawned, each with its own
+    rendezvous timeout; the parent waits RANKS_WAIT_S at most. A rank that
+    fails or hangs fails the phase. Returns each rank's results."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, f"rank{r}.npz") for r in range(world)]
+        procs = [ctx.Process(target=sharded_rank, args=(r, world, port, paths[r]))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.perf_counter() + RANKS_WAIT_S
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.perf_counter()))
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+        if hung or any(proc.exitcode != 0 for proc in procs):
+            raise AssertionError(f"sharded ranks: hung {hung}, exit codes "
+                                 f"{[proc.exitcode for proc in procs]}")
+        return [dict(np.load(path)) for path in paths]
+
+
+def phase_sharded(model):
+    """Phase 17: the sharded MPPI and iLQR on a one-rank NCCL group in
+    process and on two gloo ranks sharing the card, against the
+    single-device solvers."""
+    card = card_line()
+    t0 = time.perf_counter()
+
+    def say(msg):
+        log("sharded", f"{msg} ({card})")
+
+    def within(what, err, tol):
+        check("sharded", f"{what} ({card})", err, tol)
+
+    p = sharded_problem(model)
+    single = make_mppi_solver(model, SHARDED_MPPI, p["cost"])
+    ms0 = init_mppi(model, SHARDED_MPPI, device=DEV)
+    ms1, u01, J1 = single(ms0, p["sim"], eps=p["eps"])
+    single_rates = timed_rates(lambda: single(ms0, p["sim"], eps=p["eps"]), *SHARDED_RATE)
+    isolve = ilqr.make_ilqr_solver(model, p["icfg"], p["cost_xu"], quad_xu=p["quad_xu"])
+    ref = [isolve(ilqr.unflatten_state(model, x0, p["s0"]), u)
+           for x0, u in zip(p["x0s"], p["uss"])]
+    torch.cuda.synchronize()
+
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=RENDEZVOUS_S))
+    try:
+        one = sharded_run(model, pmesh.make_mesh())
+    finally:
+        dist.destroy_process_group()
+    t_spawn = time.perf_counter()
+    ranks = spawn_ranks(SHARDED_RANKS)
+    say(f"{SHARDED_RANKS} gloo ranks spawned, run and joined in "
+        f"{time.perf_counter() - t_spawn:.1f} s")
+    for key, value in ranks[0].items():  # the replicated results
+        if key not in ("mppi_rates", "ilqr_rates", "k1_replays") and not np.array_equal(
+                ranks[1][key], value):
+            raise AssertionError(f"sharded: rank 1's {key} differs from rank 0's")
+
+    worst = 0.0
+    for tag, r, w, replays in (
+            ("1 rank, NCCL", one, 1, json.loads(str(one["k1_replays"]))),
+            (f"{SHARDED_RANKS} ranks, gloo", ranks[0], SHARDED_RANKS,
+             [x for rank in ranks for x in json.loads(str(rank["k1_replays"]))])):
+        local_k = 3
+        want = (local_k - 1) * 4 + np.arange(4)
+        if not (np.array_equal(r["elite_best"], want) and float(r["elite_gmin"]) == 0.5):
+            raise AssertionError(f"sharded {tag}: tie-break gave {r['elite_best']}")
+        say(f"{tag}: global_elite's tie across ranks went to global index {local_k - 1}")
+        within(f"{tag}: MPPI u0 against make_mppi_solver",
+               max_err(torch.as_tensor(r["mppi_u0"]), u01.cpu()), 1e-5)
+        within(f"{tag}: MPPI J against make_mppi_solver (J {float(J1):.6f}, relative)",
+               abs(float(r["mppi_J"]) - float(J1)) / abs(float(J1)), 1e-4)
+        within(f"{tag}: MPPI nominal against make_mppi_solver",
+               max_err(torch.as_tensor(r["mppi_nominal"]), ms1.nominal.cpu()), 1e-5)
+        c = json.loads(str(r["mppi_counts"]))
+        shapes = sorted({x["K"] for x in replays})
+        if shapes != [K // w]:
+            raise AssertionError(f"sharded {tag}: K1 launched at K={shapes}, expected {K // w}")
+        for x in replays:
+            bad = {n: e for n, e in x["errs"].items() if not e <= TOL[n]}
+            if bad or x["flips"]:
+                raise AssertionError(f"sharded {tag}: K1 at K={x['K']} against the plain "
+                                     f"substep: {bad}, {x['flips']} touch flips")
+            worst = max(worst, max(x["errs"].values()))
+        say(f"{tag}: {c['K1']} K1 launches a solve per rank at K={shapes[0]}, no other kernel, "
+            f"no plain substep; each rank's first launch against the plain substep: "
+            f"{json.dumps([x['errs'] for x in replays])}")
+        ic = json.loads(str(r["ilqr_counts"]))
+        per = SHARDED_B // w
+        if ic != only(K1=10 * per, K3=11 * per, K4=10 * per):
+            raise AssertionError(f"sharded {tag}: iLQR launches {ic} for {per} problems")
+        us_err = max(max_err(torch.as_tensor(r["ilqr_us"][b]), x.us.cpu())
+                     for b, x in enumerate(ref))
+        cost_rel = max(abs(float(r["ilqr_costs"][b]) - float(x.cost)) / abs(float(x.cost))
+                       for b, x in enumerate(ref))
+        within(f"{tag}: iLQR controls against make_ilqr_solver, {SHARDED_B} problems", us_err,
+               1e-5)
+        within(f"{tag}: iLQR costs against make_ilqr_solver (relative)", cost_rel, 1e-5)
+        tr = r["ilqr_traces"]
+        if not (np.all(np.isfinite(tr)) and np.all(np.diff(tr, axis=1) <= 1e-5)):
+            raise AssertionError(f"sharded {tag}: an iLQR cost trace rises or is not finite")
+        say(f"{tag}: iLQR launches per problem K1 {ic['K1'] // per}, K3 {ic['K3'] // per}, "
+            f"K4 {ic['K4'] // per}")
+    say(f"MPPI solves/s (example 8's solve): single device {rate_line(single_rates)}; "
+        f"1 rank over NCCL {rate_line(one['mppi_rates'])}; {SHARDED_RANKS} ranks over gloo "
+        f"sharing this one card {rate_line(ranks[0]['mppi_rates'])}: two ranks on one card "
+        f"measure the collectives' overhead, not multi-card scaling")
+    say(f"iLQR problems/s (phase 7's solve, {SHARDED_B} problems): 1 rank over NCCL "
+        f"{statistics.median(one['ilqr_rates']):.2f}, {SHARDED_RANKS} ranks over gloo sharing "
+        f"the card {statistics.median(ranks[0]['ilqr_rates']):.2f} (two host processes "
+        f"dispatching to one card: the collectives' overhead and the host's parallel "
+        f"dispatch, not multi-card scaling)")
+    seconds = time.perf_counter() - t0
+    say(f"the sharded phase took {seconds:.1f} s")
+    rc = json.loads(str(ranks[0]["ilqr_counts"]))
+    per = SHARDED_B // SHARDED_RANKS
+    return dict(
+        k1=dict(launches_per_mppi_solve=json.loads(str(ranks[0]["mppi_counts"]))["K1"],
+                K=K // SHARDED_RANKS, launches_per_ilqr_problem=rc["K1"] // per,
+                max_abs_err=worst),
+        k3=dict(launches_per_ilqr_problem=rc["K3"] // per),
+        k4=dict(launches_per_ilqr_problem=rc["K4"] // per),
+        seconds=seconds)
+
+
 def strip(r):
     """A nested row for the kernels line: its bound as bound_ms and
     bound_by, nothing else that is not a number, a string or a row."""
@@ -3044,6 +3313,10 @@ def main():
     k1["learning"], missed = phase_learning()
     k1["max_abs_err"] = max(k1["max_abs_err"], k1["learning"]["max_abs_err"])
     no_staged_launch("the learning phase")
+    sharded = phase_sharded(model)
+    k1["sharded"], k3["sharded"], k4["sharded"] = sharded["k1"], sharded["k3"], sharded["k4"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1["sharded"]["max_abs_err"])
+    no_staged_launch("the sharded phase")
 
     rows = [
         ("substep_batched", "substep.cu", "gym_kmanip_tpu/ops/pallas_substep.py:404", k1),
@@ -3068,13 +3341,15 @@ def main():
                 + (f"missed bars: {missed}" if missed else "every check passed"))
     # the row's own numbers are the main path's; a second path or shape
     # (K1's iLQR probes and the env's K=1 step, K1's and K4's shapes in the
-    # examples, the torso, K7 at n = 20, K8's other variants, the
-    # alternate builds) sits under a key of its own, as does the device time
+    # examples, the sharded solves' launches, the torso, K7 at n = 20, K8's
+    # other variants, the alternate builds) sits under a key of its own, as
+    # does the device time
     # per launch that the profiler read on the staged route and in the iLQR
     # solve (profiled_ms), and on phase 8's inputs (device_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("ilqr", "env", "vec", "vision", "learning", "examples", "torso", "n20", "variants",
-             "k4_ms", "profiled_ms", "profiled_ms_k1500", "device_ms", "teams", "alternates")
+    extra = ("ilqr", "env", "vec", "vision", "learning", "sharded", "examples", "torso", "n20",
+             "variants", "k4_ms", "profiled_ms", "profiled_ms_k1500", "device_ms", "teams",
+             "alternates")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -2,8 +2,9 @@
 
 A copy of the values in `gym_kmanip_tpu/constants.py` (physics, contact,
 limit, cube, table and reward constants, robot home poses, and the env's
-action scales, masks, spawn range and IK weights, the camera specs, and
-the HDF5 logger's chunk cache and data directory),
+action scales, masks, spawn range and IK weights, the camera specs, the
+HDF5 logger's chunk cache and data directory, the real robot's camera
+capture, and the MuJoCo <-> Vuer frame converters of VR teleop),
 so the port needs neither JAX nor the JAX package at run time.
 `tests/test_torch_models.py` holds every value here equal to the JAX
 package's.
@@ -94,6 +95,105 @@ CAMERAS["head"] = Cam(640, 480, 3, 448, (320, 240), "head", "camera/head")
 CAMERAS["top"] = Cam(640, 480, 3, 448, (320, 240), "top", "camera/top")
 CAMERAS["grip_r"] = Cam(60, 40, 3, 45, (30, 20), "grip_r", "camera/grip_r")
 CAMERAS["grip_l"] = Cam(60, 40, 3, 45, (30, 20), "grip_l", "camera/grip_l")
+
+# the real robot's camera capture (env/env_real.py): frame rate, and cv2's
+# BGR channels to RGB
+CAMERA_FPS: int = 30
+BGR_TO_RGB: NDArray = np.array([2, 1, 0], dtype=np.uint8)
+
+# quaternion component orders
+XYZW_2_WXYZ: NDArray = np.array([3, 0, 1, 2])
+WXYZ_2_XYZW: NDArray = np.array([1, 2, 3, 0])
+
+# MuJoCo <-> Vuer frames for VR teleop (teleop.py): host numpy, equal to
+# scipy's Rotation formulation including the quaternion's sign
+# (tests/test_torch_sidecars.py)
+VUER_IMG_QUALITY: int = 20
+# Rz(pi) @ Rx(pi/2)
+MJ_TO_VUER_MAT: NDArray = np.array([[-1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, 1.0, 0.0]])
+VUER_TO_MJ_MAT: NDArray = MJ_TO_VUER_MAT.T
+# scipy's quaternion of VUER_TO_MJ: the Hamilton product with it reproduces
+# Rotation.__mul__'s output, sign included
+_VUER_TO_MJ_QUAT_XYZW: NDArray = np.array([0.0, -np.sqrt(0.5), -np.sqrt(0.5), 0.0])
+
+
+def _np_quat_xyzw_to_mat(q: NDArray) -> NDArray:
+    x, y, z, w = np.asarray(q, dtype=np.float64) / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def _np_mat_to_quat_xyzw(m: NDArray) -> NDArray:
+    """Shepperd's method with scipy's sign rule: the component picked by
+    argmax([m00, m11, m22, trace]) takes the positive square root."""
+    t = float(np.trace(m))
+    choice = int(np.argmax([m[0, 0], m[1, 1], m[2, 2], t]))
+    if choice == 3:
+        w = 0.5 * np.sqrt(1.0 + t)
+        s = 0.25 / w
+        return np.array([(m[2, 1] - m[1, 2]) * s, (m[0, 2] - m[2, 0]) * s,
+                         (m[1, 0] - m[0, 1]) * s, w])
+    i = choice
+    j, kk = (i + 1) % 3, (i + 2) % 3
+    xi = 0.5 * np.sqrt(max(1.0 + m[i, i] - m[j, j] - m[kk, kk], 0.0))
+    s = 0.25 / xi
+    q = np.zeros(4)
+    q[i] = xi
+    q[j] = (m[j, i] + m[i, j]) * s
+    q[kk] = (m[kk, i] + m[i, kk]) * s
+    q[3] = (m[kk, j] - m[j, kk]) * s
+    return q
+
+
+def mat_to_euler_xyz(m: NDArray) -> NDArray:
+    """Extrinsic-xyz euler angles of M = Rz(c) @ Ry(b) @ Rx(a), as scipy's
+    `as_euler("xyz")`."""
+    b = float(np.arcsin(np.clip(-m[2, 0], -1.0, 1.0)))
+    a = float(np.arctan2(m[2, 1], m[2, 2]))
+    c = float(np.arctan2(m[1, 0], m[0, 0]))
+    return np.array([a, b, c])
+
+
+def _np_quat_mul_xyzw(p: NDArray, q: NDArray) -> NDArray:
+    px, py, pz, pw = p
+    qx, qy, qz, qw = q
+    return np.array([
+        pw * qx + qw * px + py * qz - pz * qy,
+        pw * qy + qw * py + pz * qx - px * qz,
+        pw * qz + qw * pz + px * qy - py * qx,
+        pw * qw - px * qx - py * qy - pz * qz,
+    ])
+
+
+def mj2vuer_pos(pos: NDArray) -> NDArray:
+    return MJ_TO_VUER_MAT @ np.asarray(pos, dtype=np.float64)
+
+
+def mj2vuer_orn(orn: NDArray, offset: NDArray = None) -> NDArray:
+    """wxyz quat (and an optional wxyz offset quat) -> Vuer xyz euler."""
+    m = _np_quat_xyzw_to_mat(np.asarray(orn)[XYZW_2_WXYZ]) @ MJ_TO_VUER_MAT
+    if offset is not None:
+        m = _np_quat_xyzw_to_mat(np.asarray(offset)[XYZW_2_WXYZ]) @ m
+    return mat_to_euler_xyz(m)
+
+
+def vuer2mj_pos(pos: NDArray) -> NDArray:
+    return VUER_TO_MJ_MAT @ np.asarray(pos, dtype=np.float64)
+
+
+def vuer2mj_orn(orn) -> NDArray:
+    """Vuer rotation -> quat reordered by WXYZ_2_XYZW, sign included. Takes
+    a scipy Rotation, a 3 x 3 matrix or an xyzw quat."""
+    if hasattr(orn, "as_quat"):
+        q_in = np.asarray(orn.as_quat(), dtype=np.float64)
+    else:
+        arr = np.asarray(orn, dtype=np.float64)
+        q_in = _np_mat_to_quat_xyzw(arr) if arr.shape == (3, 3) else arr
+    return _np_quat_mul_xyzw(q_in, _VUER_TO_MJ_QUAT_XYZW)[WXYZ_2_XYZW]
+
 
 # cube spawn bounds (x, y, z rows of [lo, hi])
 CUBE_SPAWN_RANGE: NDArray = np.array(

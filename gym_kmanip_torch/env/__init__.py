@@ -4,7 +4,8 @@
 namespace `gym_kmanip_torch/` (`gym.make("gym_kmanip_torch/KManipSoloArm",
 device="cpu")`), beside the JAX package's bare ids. It imports gymnasium,
 and raises ImportError where there is none; nothing else in the package
-needs it (`env_sim.KManipEnvSim` drives the task without it).
+needs it (`env_sim.KManipEnvSim` drives the task without it). `make(env_id,
+**kwargs)` registers the ids and makes `gym_kmanip_torch/<env_id>`.
 """
 
 from gym_kmanip_torch.env.config import CONFIGS
@@ -40,3 +41,11 @@ def register():
                 "ctrl_id_l_grip": cfg.ctrl_id_l_grip,
             },
         )
+
+
+def make(env_id: str, **kwargs):
+    """`gym.make("gym_kmanip_torch/<env_id>", **kwargs)` after `register()`."""
+    import gymnasium as gym
+
+    register()
+    return gym.make(f"{NAMESPACE}/{env_id}", **kwargs)

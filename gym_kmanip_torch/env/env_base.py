@@ -9,10 +9,13 @@ gymnasium is imported lazily: `KManipEnv` is built on first access of the
 name (`from gym_kmanip_torch.env.env_base import KManipEnv`, or gymnasium's
 entry point), so importing this module needs no gymnasium, as on a GPU host
 that has none. `log_h5py=True` records each episode as an ACT-layout HDF5
-file (log/log_h5py.py) under `constants.DATA_DIR/<log_prefix>.<uuid>.<date>`,
-the directory read from the constants module when the env is made. The
-rerun logger (`log_rerun`) and the real-robot backend (`sim=False`) are
-ROADMAP.md Queue 1 item 2 and raise. Camera observations are
+file (log/log_h5py.py) and `log_rerun=True` as rerun streams
+(log/log_rerun.py; a JSON-lines file without the rerun SDK), both under
+`constants.DATA_DIR/<log_prefix>.<uuid>.<date>`, the directory read from
+the constants module when the env is made; the loggers get the host numpy
+observations of the backend's one copy a step. `sim=False` selects the
+real-robot backend (env/env_real.py: camera capture, a command stub),
+which runs on the host and ignores `device`. Camera observations are
 `Box(0, 255, (h, w, 3), uint8)` at the Cam spec's size, and `render()`
 returns the top camera's frame.
 """
@@ -30,7 +33,7 @@ from numpy.typing import NDArray
 
 from gym_kmanip_torch import constants as k
 from gym_kmanip_torch.env.config import EnvConfig
-from gym_kmanip_torch.log import log_h5py
+from gym_kmanip_torch.log import log_h5py, log_rerun
 
 
 def __getattr__(name):
@@ -69,10 +72,6 @@ def _env_class():
             device: str = "cuda",
         ):
             super().__init__()
-            if log_rerun or not sim:
-                raise NotImplementedError(
-                    "the rerun logger (log_rerun) and the real-robot backend (sim=False) "
-                    "are not ported yet: ROADMAP.md Queue 1 item 2")
             if obs_list is None:
                 obs_list = ["q_pos", "q_vel", "cube_pos", "cube_orn", "camera/top",
                             "camera/head", "camera/grip_l", "camera/grip_r"]
@@ -97,7 +96,7 @@ def _env_class():
             self.log_rerun: bool = log_rerun
             self.log_h5py: bool = log_h5py
             self.h5py_f = None
-            if log_h5py:
+            if log_h5py or log_rerun:
                 name = "{}.{}.{}".format(log_prefix, str(uuid.uuid4())[:6],
                                          datetime.now().strftime(k.DATE_FORMAT))
                 self.log_dir = os.path.join(k.DATA_DIR, name)
@@ -149,9 +148,14 @@ def _env_class():
             )
 
             self.sim: bool = sim
-            from gym_kmanip_torch.env.env_sim import new
+            if sim:
+                from gym_kmanip_torch.env.env_sim import new
 
-            self.env = new(self, device=device)
+                self.env = new(self, device=device)
+            else:
+                from gym_kmanip_torch.env.env_real import new
+
+                self.env = new(self)
 
             self.info: Dict[str, Any] = {
                 "step": self.step_idx,
@@ -189,6 +193,11 @@ def _env_class():
                 self.h5py_f = log_h5py.new(self.log_dir, self.info)
                 for cam in self.cameras:
                     log_h5py.cam(self.h5py_f, cam)
+            if self.log_rerun:
+                log_rerun.end()  # an episode left open by a reset
+                log_rerun.new(self.log_dir, self.info)
+                for cam in self.cameras:
+                    log_rerun.cam(cam)
             return observation, self.info
 
         def step(self, action):
@@ -201,6 +210,8 @@ def _env_class():
             self.info["reward"] = reward
             self.info["is_success"] = bool(reward > k.REWARD_SUCCESS_THRESHOLD)
             self.info["terminated"] = terminated
+            if self.log_rerun:
+                log_rerun.step(action, observation, self.info)
             if self.log_h5py:
                 log_h5py.step(self.h5py_f, action, observation, self.info)
             return observation, reward, terminated, False, self.info
@@ -209,6 +220,8 @@ def _env_class():
             if self.log_h5py:
                 log_h5py.end(self.h5py_f)
                 self.h5py_f = None
+            if self.log_rerun:
+                log_rerun.end()
             self.env.k_close()
             super().close()
 

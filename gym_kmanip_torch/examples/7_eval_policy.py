@@ -69,12 +69,9 @@ def make_policy(env, ckpt_path: str = None, device="cuda"):
 def main(env_name: str = ENV_NAME, num_episodes: int = NUM_EPISODES,
          max_steps: int = k.MAX_EPISODE_STEPS, ckpt_path: str = None, device="cuda"):
     """Each episode's (return, success) as a list."""
-    import gymnasium as gym
-
     from gym_kmanip_torch import env as kenv
 
-    kenv.register()
-    env = gym.make(f"{kenv.NAMESPACE}/{env_name}", device=device)
+    env = kenv.make(env_name, device=device)
     policy = make_policy(env, ckpt_path, device=device)
     results = []
     for ep in range(num_episodes):

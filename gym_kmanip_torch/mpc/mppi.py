@@ -125,6 +125,33 @@ def rewinder(mppi_state: MPPIState) -> Callable[[], MPPIState]:
     return start
 
 
+def sigma_tensor(model: RobotModel, cfg: MPPIConfig, device: torch.device) -> torch.Tensor:
+    """`sigma_per_actuator` on `device`, built once per (model, sigma,
+    device)."""
+    key = ("mppi_sigma", float(cfg.sigma), str(device))
+    sigma = model.cache.get(key)
+    if sigma is None:
+        sigma = torch.as_tensor(sigma_per_actuator(model, cfg.sigma), device=device)
+        model.cache[key] = sigma
+    return sigma
+
+
+def injected_noise(model: RobotModel, cfg: MPPIConfig,
+                   eps: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Injected noise as (n_iters, K, H, nu); (K, H, nu) is one iteration's.
+    Raises on any other shape."""
+    if eps is None:
+        return None
+    shape = (cfg.n_iters, cfg.n_samples, cfg.horizon, model.nu)
+    if eps.dim() == 3:
+        eps = eps[None]
+    if tuple(eps.shape) != shape:
+        raise ValueError(
+            f"eps of shape {tuple(eps.shape)} with n_iters={cfg.n_iters}: injected noise "
+            f"is {shape}, or {shape[1:]} for one iteration")
+    return eps
+
+
 def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
                sim_state: SimState, cost_fn: Callable,
                eps: Optional[torch.Tensor] = None, substep_fn: Callable = substep,
@@ -145,19 +172,8 @@ def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
     t = model_tensors(model, device)
     lo, hi = t.ctrl_lo, t.ctrl_hi
     K, H, nu = cfg.n_samples, cfg.horizon, model.nu
-    key = ("mppi_sigma", float(cfg.sigma), str(device))
-    sigma = model.cache.get(key)
-    if sigma is None:  # built once per (model, sigma, device)
-        sigma = torch.as_tensor(sigma_per_actuator(model, cfg.sigma), device=device)
-        model.cache[key] = sigma
-    if eps is not None:
-        if eps.dim() == 3:
-            eps = eps[None]
-        if tuple(eps.shape) != (cfg.n_iters, K, H, nu):
-            raise ValueError(
-                f"eps of shape {tuple(eps.shape)} with n_iters={cfg.n_iters}: injected noise "
-                f"is ({cfg.n_iters}, {K}, {H}, {nu}), or ({K}, {H}, {nu}) for one iteration"
-            )
+    sigma = sigma_tensor(model, cfg, device)
+    eps = injected_noise(model, cfg, eps)
 
     nominal = proposal = mppi_state.nominal
     best_cost = None

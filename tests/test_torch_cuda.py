@@ -791,3 +791,33 @@ def test_training_steps_on_card_match_cpu(cuda):
                                                err_msg=f"{name} {layer}/{leaf}")
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_sharded_mppi_on_card_matches_single_device(cuda):
+    """The sharded MPPI on a mesh of one rank (no process group) on the
+    card, at example 8's shape with the horizon cut to 4 (K = 256, 2
+    iterations, 10 substeps of 2 ms, contact): on the same injected noise,
+    the single-device solve's u0 (1e-5), J (1e-4) and nominal (1e-5), with
+    n_iters x H x n_substeps K1 launches."""
+    import importlib
+
+    from gym_kmanip_torch.dynamics.state import init_state
+    from gym_kmanip_torch.mpc.mppi import MPPIConfig, init_mppi, make_mppi_solver
+    from gym_kmanip_torch.parallel import mesh as pm
+
+    ex8 = importlib.import_module("gym_kmanip_torch.examples.8_mpc_mppi")
+    m = get_model("solo_arm")
+    cost = ex8.make_cost(m)
+    cfg = MPPIConfig(horizon=4, n_samples=256, n_iters=2, sigma=0.15, n_substeps=10, dt=0.002,
+                     noise_beta=0.9)
+    s = init_state(m, cube_pos=ex8.CUBE_SPAWN, device=cuda)
+    eps = torch.randn((2, 256, 4, m.nu), generator=torch.Generator(cuda).manual_seed(0),
+                      device=cuda) * 0.1
+    before = substep_cuda.substep_batched.launches
+    ms, u0, J = pm.make_sharded_mppi_solver(m, cfg, cost, pm.make_mesh())(
+        init_mppi(m, cfg, device=cuda), s, eps=eps)
+    torch.cuda.synchronize()
+    assert substep_cuda.substep_batched.launches - before == 2 * 4 * 10
+    ms1, u01, J1 = make_mppi_solver(m, cfg, cost)(init_mppi(m, cfg, device=cuda), s, eps=eps)
+    for got, want, tol in ((u0, u01, 1e-5), (J, J1, 1e-4), (ms.nominal, ms1.nominal, 1e-5)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol, rtol=0)

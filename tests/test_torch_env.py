@@ -281,8 +281,8 @@ def test_constants_and_configs_match_jax():
 def test_unported_options_raise():
     """Camera observations and k_render no longer raise: the backend renders
     a duck-typed shell's cameras and renders any camera on request. Nor do
-    the vision fits (a fit of one step each here) or ik_host64=False; the
-    rerun logger and the real robot (Queue 1 item 2) still raise
+    the vision fits (a fit of one step each here) or ik_host64=False; nor
+    do the rerun logger and the real robot
     (test_reset_determinism_truncation_and_info)."""
     import types
 
@@ -411,9 +411,15 @@ def test_reset_determinism_truncation_and_info(gym, tmp_path, monkeypatch):
     assert os.path.basename(env.unwrapped.log_dir).startswith("p.")
     assert env.unwrapped.info["act_dims"] == {"eer_pos": 3, "eer_orn": 3, "grip_r": 1}
     env.close()
-    for option in (dict(log_rerun=True), dict(sim=False)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", **option)
+    # log_rerun: the same log directory; sim=False: the real-robot backend
+    env = gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", log_rerun=True,
+                   log_prefix="r")
+    assert os.path.basename(env.unwrapped.log_dir).startswith("r.")
+    env.close()
+    env = gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu", sim=False,
+                   obs_list=["camera/grip_r"])
+    assert type(env.unwrapped.env).__name__ == "KManipEnvReal" and not env.unwrapped.info["sim"]
+    env.close()
     # a camera in obs_list: a uint8 Box at the Cam spec's size
     env = gym.make("gym_kmanip_torch/KManipSoloArm", device="cpu",
                    obs_list=["q_pos", "camera/head"])

@@ -1,11 +1,11 @@
 """The port's examples 8, 9 and 11 run end to end on the CPU at tiny
-sizes (their `main()` keyword arguments): finite results, the shapes the
-JAX examples print, and the parts that are not ported raising."""
+sizes (their `main()` keyword arguments): finite results and the shapes
+the JAX examples print; example 8 also sharded, on a mesh of one rank.
+Examples 0-5 are in tests/test_torch_sidecars.py."""
 
 import importlib
 
 import numpy as np
-import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -36,5 +36,10 @@ def test_example_8_mppi_closed_loop():
     ex = _example("8_mpc_mppi")
     out = ex.main(horizon=2, n_samples=8, n_control_steps=2, device="cpu")
     assert out["finite"] and np.isfinite(out["tip_cube_m"]) and out["hz"] > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        ex.main(sharded=True, device="cpu")
+    # sharded with no launcher: a mesh of one rank, the same closed loop to
+    # the order of the proposal's float32 sums
+    sharded = ex.main(horizon=2, n_samples=8, n_control_steps=2, sharded=True, device="cpu")
+    assert not torch.distributed.is_initialized()
+    for key in ("finite", "touch_steps", "lifted"):
+        assert sharded[key] == out[key], key
+    assert abs(sharded["tip_cube_m"] - out["tip_cube_m"]) <= 1e-5

@@ -135,6 +135,27 @@ _SCRIPT = textwrap.dedent(
     log_h5py.step(f, {"ctrl": s.ctrl}, {"q_pos": s.qpos, "q_vel": s.qvel}, info)
     log_h5py.end(f)
     assert os.path.exists(os.path.join(d, "episode_0.hdf5"))
+    # the multi-device slice and the side-cars: a sharded MPPI solve on a
+    # mesh of one rank, a checkpoint round trip with the generator, an
+    # episode of the rerun logger's fallback
+    from gym_kmanip_torch.log import log_rerun
+    from gym_kmanip_torch.parallel import mesh as pm
+    from gym_kmanip_torch.utils import checkpoint
+    mcfg = MPPIConfig(horizon=2, n_samples=4)
+    ms, u0, J = pm.make_sharded_mppi_solver(
+        m, mcfg, lambda st, aux, u: cube_pick_cost(m, st, aux, u, params), pm.make_mesh())(
+        init_mppi(m, mcfg, seed=0, device="cpu"), s)
+    assert u0.shape == (m.nu,) and bool(torch.isfinite(J))
+    path = os.path.join(d, "mppi.npz")
+    checkpoint.save(path, ms)
+    ms2 = checkpoint.restore(path, init_mppi(m, mcfg, seed=1, device="cpu"))
+    assert torch.equal(ms2.nominal, ms.nominal)
+    assert torch.equal(ms2.generator.get_state(), ms.generator.get_state())
+    log_rerun.new(d, dict(obs_list=["q_pos"], act_list=["ctrl"], cameras=[], episode=3))
+    log_rerun.step({"ctrl": s.ctrl}, {"q_pos": s.qpos},
+                   dict(sim_time=0.0, cpu_time=0.0, episode=3, step=1, q_keys=[], cameras=[]))
+    log_rerun.end()
+    assert len(open(os.path.join(d, "episode_3.rrd.jsonl")).readlines()) == 2
     try:
         kenv.register()
         raise AssertionError("register() ran without gymnasium")
@@ -156,4 +177,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     ok, n_modules = proc.stdout.split()[-2:]
-    assert ok == "OK" and int(n_modules) >= 61
+    assert ok == "OK" and int(n_modules) >= 77
