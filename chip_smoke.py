@@ -199,11 +199,32 @@ Phases (any failure raises, and the script exits non-zero):
                   solves/s single-device, one rank and two ranks, and iLQR
                   problems/s (two ranks on one card measure the
                   collectives' overhead, not scaling).
+ 18. slice:       the robots' tables, the dynamics identities and the zoo
+                  tools, each line with the card's name and power limit:
+                  gen_assets.build_asset_xml of each robot's _chains tables
+                  byte-identical to the port's shipped asset; K5's bias
+                  forces (rnea_terms_fast) against the Lagrangian autodiff
+                  oracle bias_forces_ad on the card at atol = rtol = 1e-4,
+                  K = 256 states of the solo arm and the torso drawn as
+                  tests/test_dynamics.py:73-86 draws them (two K5 launches
+                  and nothing else), K5 against its plain version on them,
+                  M(q) symmetric to 1e-5 and positive definite;
+                  gym_kmanip_torch/tools/train_zoo.py --model solo_arm at 2
+                  episodes of 20 steps, 1 DAgger round of 1 episode, 50 BC
+                  steps and 2 evals into a temporary --out-dir (the HDF5
+                  stand-in where the host has no h5py): exactly the K1
+                  launches of its episodes and nothing else, the first K1
+                  launch of each shape replayed against the plain version,
+                  the artifact reloaded through the port's loader with its
+                  meta complete, the never-regress guard keeping a better
+                  incumbent; expert solves/s and BC steps/s. Every part runs
+                  before a failed check fails the phase.
 Only the staged route moves the K5, K6 and K7 counters: every other phase,
 and every plain-version call, leaves them as they were.
 The kernels line, then the card's name and power limit (nvidia-smi), then
 {"ok": true, "device": {...}}. Exits non-zero without a GPU, and after the
-card's line, without the ok line, when a bar of phase 16 was missed.
+card's line, without the ok line, when a bar of phase 16 was missed or a
+check of phase 18 failed.
 """
 
 import copy
@@ -253,7 +274,8 @@ from gym_kmanip_torch.ops import rollout_pick_cuda, substep_cuda  # noqa: E402
 from gym_kmanip_torch.parallel import mesh as pmesh  # noqa: E402
 from gym_kmanip_torch.solvers import ik, ik_host, ilqr, trf  # noqa: E402
 from gym_kmanip_torch.render import raycast  # noqa: E402
-from gym_kmanip_torch.tools import exp_sweep_floor  # noqa: E402
+from gym_kmanip_torch.models import _table_models  # noqa: E402
+from gym_kmanip_torch.tools import exp_sweep_floor, gen_assets, train_zoo  # noqa: E402
 from gym_kmanip_torch.utils import optim  # noqa: E402
 from gym_kmanip_torch.utils import rotations as rot  # noqa: E402
 from gym_kmanip_torch.utils.flax_layers import same_side  # noqa: E402
@@ -2515,7 +2537,7 @@ def h5py_stand_in():
     are held on the CPU by tests/test_torch_learning.py."""
     try:
         import h5py
-        return h5py, False
+        return h5py, bool(getattr(h5py, "IN_MEMORY_STAND_IN", False))
     except ImportError:
         pass
     files = {}
@@ -2558,6 +2580,7 @@ def h5py_stand_in():
 
     mod = types.ModuleType("h5py")
     mod.File = File
+    mod.IN_MEMORY_STAND_IN = True  # a later call reports the stand-in, not h5py
     sys.modules["h5py"] = mod
     return mod, True
 
@@ -3220,6 +3243,163 @@ def phase_sharded(model):
         seconds=seconds)
 
 
+# phase 18: the robots' tables and asset generator, K5 against the autodiff
+# oracle, and the zoo's train-and-ship pipeline at a toy size
+ORACLE_K, ORACLE_SEED = 256, 0
+ZOO_TOY = dict(episodes=2, ep_len=20, dagger_episodes=1, train_steps=50, evals=2)
+
+
+def slice_assets(failures):
+    """gen_assets.build_asset_xml of each robot's tables against the port's
+    shipped file, byte for byte."""
+    rows = {}
+    for name, builder in _table_models().items():
+        emitted = gen_assets.build_asset_xml(builder()).encode()
+        with open(os.path.join(constants.ASSETS_DIR, f"{name}.xml"), "rb") as f:
+            shipped = f.read()
+        same = emitted == shipped
+        log("slice", f"assets: {name}.xml emitted from the tables, {len(emitted)} bytes, "
+                     f"{'byte-identical to' if same else 'DIFFERS from'} the shipped file")
+        if not same:
+            failures.append(f"assets: {name}.xml differs from the tables' emission")
+        rows[name] = len(emitted)
+    return rows
+
+
+def slice_oracle(card, failures):
+    """K5's bias forces (`rnea_terms_fast` on the card) against the
+    Lagrangian autodiff oracle `bias_forces_ad` on the card at atol = rtol
+    = 1e-4 (tests/test_dynamics.py:73-86's draws at K = 256), K5 against
+    its plain version, and M(q) symmetric to 1e-5 and positive definite;
+    the solo arm and the torso, with K5's launches counted."""
+    rng = np.random.RandomState(ORACLE_SEED)
+    inputs, out = {}, {}
+    for name in ("solo_arm", "torso"):
+        m = get_model(name)
+        lo, hi = np.maximum(m.jnt_range[:, 0], -3), np.minimum(m.jnt_range[:, 1], 3)
+        q = rng.uniform(lo, hi, (ORACLE_K, m.nq)).astype(np.float32)
+        v = (rng.randn(ORACLE_K, m.nq) * 0.5).astype(np.float32)
+        inputs[name] = (m, torch.as_tensor(q, device=DEV), torch.as_tensor(v, device=DEV))
+    reset_counts()
+    bias = {name: kin.rnea_terms_fast(m, q, v)[3] for name, (m, q, v) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != only(K5=len(inputs)):
+        failures.append(f"oracle: launches {launches}, expected {len(inputs)} of K5")
+    for name, (m, q, v) in inputs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oracle = kin.bias_forces_ad(m, q, v)
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        err = max_err(bias[name], oracle)
+        ok = bool(torch.all((bias[name] - oracle).abs() <= 1e-4 + 1e-4 * oracle.abs()))
+        M = kin.mass_matrix(m, q)
+        sym = max_err(M, M.transpose(-1, -2))
+        min_eig = float(torch.linalg.eigvalsh(M.double()).min())
+        plain_err = k5_errors(f"oracle {name} K={ORACLE_K}", m, q.contiguous(), v.contiguous())
+        ms = cuda_ms(lambda: rnea_cuda.rnea_terms_batched(m, q, v), 50)
+        log("slice", f"oracle {name}: K5 bias vs bias_forces_ad at K={ORACLE_K}: max abs err "
+                     f"{err:.3e}, within atol = rtol = 1e-4: {'yes' if ok else 'NO'}; M(q) "
+                     f"asymmetry {sym:.3e} (<= 1e-5), smallest eigenvalue {min_eig:.3e} (> 0); "
+                     f"K5 vs its plain version {plain_err:.3e}; K5 {ms:.4f} ms a launch, the "
+                     f"oracle {oracle_s * 1e3:.1f} ms (torch.func, eager) [{card}]")
+        if not (ok and sym <= 1e-5 and min_eig > 0):
+            failures.append(f"oracle {name}: err {err:.3e}, asymmetry {sym:.3e}, "
+                            f"smallest eigenvalue {min_eig:.3e}")
+        out[name] = dict(max_abs_err_vs_oracle=err, max_abs_err=plain_err, ms=ms,
+                         oracle_ms=oracle_s * 1e3, mass_matrix_asymmetry=sym)
+    return dict(launches=launches["K5"], max_abs_err=max(r["max_abs_err"] for r in out.values()),
+                robots=out)
+
+
+def slice_zoo(card, failures):
+    """`train_zoo --model solo_arm` at a toy size into a temporary --out-dir
+    through the HDF5 logger (its in-memory stand-in where the host has no
+    h5py), with its K1 launches counted (exactly those of its record,
+    DAgger and eval episodes, and nothing else); the artifact loads through
+    the port's loader with its meta complete, the first K1 launch of each
+    shape replayed against the plain version, and the never-regress guard
+    refuses to replace a better incumbent."""
+    _, stand_in = h5py_stand_in()
+    out_dir = tempfile.mkdtemp(prefix="kmanip_zoo_out_")
+    t = ZOO_TOY
+    argv = ["--model", "solo_arm", "--episodes", str(t["episodes"]), "--ep-len", str(t["ep_len"]),
+            "--dagger-rounds", "1", "--dagger-episodes", str(t["dagger_episodes"]),
+            "--train-steps", str(t["train_steps"]), "--evals", str(t["evals"]),
+            "--out-dir", out_dir, "--data-dir", tempfile.mkdtemp(prefix="kmanip_zoo_data_")]
+    eval_len = int(t["ep_len"] * 1.2)
+    # record and DAgger: 5 settling steps, then ep_len steps of one expert
+    # solve (2 iterations x 20 steps x 10 substeps) and one plant step;
+    # each evaluate (two selection evals and the final one) is one batch
+    expected = ((t["episodes"] + t["dagger_episodes"]) * (50 + t["ep_len"] * 410)
+                + 3 * 10 * (5 + eval_len))
+    lines = []
+    with launches_of("zoo tools", expected) as run:
+        summary = train_zoo.main(argv, log=lines.append)
+    rows = replay_k1("slice zoo tools", run.k1)
+    meta = summary["meta"]
+    want_keys = {"arch", "model", "hidden", "depth", "trained_by", "device", "n_expert_episodes",
+                 "dagger_rounds", "dagger_episodes_per_round", "expert_success_rate",
+                 "eval_success_rate", "eval_episodes", "eval_ep_len", "spawn_range", "lift_dz",
+                 "format_version"}
+    path = summary["artifact"]
+    policy, loaded = zoo.load_policy(path, device=DEV)
+    s0 = init_state(get_model("solo_arm"), cube_pos=ex13.SPAWN_CENTER, device=DEV)
+    complete = (summary["shipped"] and set(loaded) == want_keys and loaded == meta
+                and loaded["trained_by"] == "gym_kmanip_torch/tools/train_zoo.py"
+                and loaded["device"] == torch.cuda.get_device_name(0)
+                and bool(torch.isfinite(policy(s0)).all()))
+    # the guard: an incumbent that evaluated better stays
+    art = zoo.load_artifact(path)
+    better = dict({k_: v for k_, v in meta.items() if k_ != "format_version"},
+                  eval_success_rate=float(meta["eval_success_rate"]) + 0.25)
+    zoo.save_policy(path, art.params, art.stats, better)
+    with open(path, "rb") as f:
+        before = f.read()
+    refused = not train_zoo.ship(path, zoo.bc_mlp_from_flax(art.params), art.stats, meta,
+                                 log=lines.append)
+    with open(path, "rb") as f:
+        refused = refused and f.read() == before
+    sec = summary["stage_seconds"]
+    solves_per_s = summary["expert_solves"] / (sec["record"] + sec["dagger"])
+    bc_per_s = summary["bc_steps"] / sec["train"]
+    log("slice", f"zoo tools: train_zoo --model solo_arm at {t['episodes']} episodes of "
+                 f"{t['ep_len']} steps, 1 DAgger round of {t['dagger_episodes']}, "
+                 f"{t['train_steps']} BC steps, {t['evals']} evals in {sum(sec.values()):.1f} s "
+                 f"({', '.join(f'{k_} {v:.2f} s' for k_, v in sec.items())}); "
+                 f"{run.counts['K1']} K1 launches (expected {expected}), no other kernel; expert "
+                 f"{solves_per_s:.2f} solves/s (record and DAgger, plant steps included), BC "
+                 f"{bc_per_s:.1f} steps/s; expert rate {meta['expert_success_rate']:.2f}, "
+                 f"selection {summary['selection_eval']:.2f}, eval {meta['eval_success_rate']:.2f}; "
+                 f"artifact written, reloaded, meta complete: {'yes' if complete else 'NO'}; the "
+                 f"guard kept a better incumbent: {'yes' if refused else 'NO'} "
+                 f"({'an in-memory stand-in of h5py.File' if stand_in else 'h5py'}) [{card}]")
+    if not complete:
+        failures.append(f"zoo tools: artifact {path}, meta {loaded}")
+    if not refused:
+        failures.append("zoo tools: the guard replaced a better incumbent")
+    return dict(launches=run.counts["K1"], max_abs_err=max(r["max_abs_err"] for r in rows),
+                expert_solves_per_s=solves_per_s, bc_steps_per_s=bc_per_s, stage_seconds=sec,
+                eval_success_rate=meta["eval_success_rate"], k1=rows)
+
+
+def phase_slice():
+    """Phase 18: the assets from the tables, K5 against the autodiff oracle,
+    and the zoo pipeline at a toy size; every part runs, then returns (the
+    K5 row, the K1 row, the failures): a failure fails the script after the
+    kernels line (main)."""
+    card = card_line()
+    t0 = time.perf_counter()
+    failures = []
+    assets = slice_assets(failures)
+    oracle = slice_oracle(card, failures)
+    zoo_row = slice_zoo(card, failures)
+    log("done", f"the slice phase took {time.perf_counter() - t0:.1f} s")
+    oracle["asset_bytes"] = assets
+    return oracle, zoo_row, failures
+
+
 def strip(r):
     """A nested row for the kernels line: its bound as bound_ms and
     bound_by, nothing else that is not a number, a string or a row."""
@@ -3317,6 +3497,12 @@ def main():
     k1["sharded"], k3["sharded"], k4["sharded"] = sharded["k1"], sharded["k3"], sharded["k4"]
     k1["max_abs_err"] = max(k1["max_abs_err"], k1["sharded"]["max_abs_err"])
     no_staged_launch("the sharded phase")
+    oracle, zoo_tools, slice_failures = phase_slice()
+    missed = missed + slice_failures
+    zoo_tools.pop("k1")
+    staged["K5"]["oracle"], k1["zoo_tools"] = oracle, zoo_tools
+    staged["K5"]["max_abs_err"] = max(staged["K5"]["max_abs_err"], oracle["max_abs_err"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], zoo_tools["max_abs_err"])
 
     rows = [
         ("substep_batched", "substep.cu", "gym_kmanip_tpu/ops/pallas_substep.py:404", k1),
@@ -3347,9 +3533,9 @@ def main():
     # per launch that the profiler read on the staged route and in the iLQR
     # solve (profiled_ms), and on phase 8's inputs (device_ms)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("ilqr", "env", "vec", "vision", "learning", "sharded", "examples", "torso", "n20",
-             "variants", "k4_ms", "profiled_ms", "profiled_ms_k1500", "device_ms", "teams",
-             "alternates")
+    extra = ("ilqr", "env", "vec", "vision", "learning", "sharded", "zoo_tools", "oracle",
+             "examples", "torso", "n20", "variants", "k4_ms", "profiled_ms", "profiled_ms_k1500",
+             "device_ms", "teams", "alternates")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3364,8 +3550,9 @@ def main():
     print(card_line())
     if missed:
         # every phase ran and every kernel check passed; a bar of the
-        # learning phase was missed, so the run fails without the ok line
-        sys.exit("chip_smoke: the learning phase missed: " + "; ".join(missed))
+        # learning phase or a check of the slice phase failed, so the run
+        # fails without the ok line
+        sys.exit("chip_smoke: the learning or slice phase missed: " + "; ".join(missed))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

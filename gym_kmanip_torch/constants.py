@@ -7,7 +7,7 @@ HDF5 logger's chunk cache and data directory, the real robot's camera
 capture, and the MuJoCo <-> Vuer frame converters of VR teleop),
 so the port needs neither JAX nor the JAX package at run time.
 `tests/test_torch_models.py` holds every value here equal to the JAX
-package's.
+package's, but `ASSETS_DIR`: the port ships its own copies of the assets.
 """
 
 import os
@@ -18,17 +18,16 @@ from typing import List, OrderedDict, Tuple
 import numpy as np
 from numpy.typing import NDArray
 
-# the port reads the JAX package's MJCF files as data, by path
-ASSETS_DIR: str = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "gym_kmanip_tpu",
-    "assets",
-)
+# the port's MJCF assets (tools/gen_assets.py writes them from the
+# models/_chains.py tables)
+ASSETS_DIR: str = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 # recorded episodes (env/env_base.py's log directories): the JAX package's
 # data directory, so that the two packages' examples read each other's
 # episode files
-DATA_DIR: str = os.path.join(os.path.dirname(ASSETS_DIR), "data")
+DATA_DIR: str = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "gym_kmanip_tpu", "data"
+)
 DATE_FORMAT: str = "%mm%dd%Yy_%Hh%Mm"
 
 SOLO_ARM_MJCF: str = "_env_solo_arm.xml"
@@ -227,6 +226,7 @@ TABLE_HALF_Y: float = 0.4
 CUBE_HALF_SIZE: float = 0.02
 CUBE_MASS: float = 0.05
 CUBE_DIAG_INERTIA: float = 0.002
+CUBE_FRICTION: Tuple[float, float, float] = (1.0, 0.005, 0.0001)  # the assets' cube geom
 CUBE_FRICTIONLOSS: float = 0.01
 CUBE_INIT_POS: NDArray = np.array([0.2, 0.5, 0.65])
 

@@ -1,9 +1,12 @@
 """Robot model registry, the carry-across from other model objects, and the
 per-device model tensors.
 
-The three Stompy robots are read from the JAX package's shipped MJCF files
-(`gym_kmanip_tpu/assets/{solo_arm,dual_arm,torso}.xml`) through the port's
-own loader, so the port never imports JAX.
+The three Stompy robots are read from the port's shipped MJCF files
+(`gym_kmanip_torch/assets/{solo_arm,dual_arm,torso}.xml`) through the
+port's own loader. Those files are generated from the hand-derived tables
+in `models/_chains.py` (`_table_models()`, `tools/gen_assets.py`), byte
+for byte the JAX package's assets, so the port rebuilds and changes a
+robot without JAX.
 """
 
 import functools
@@ -33,22 +36,94 @@ def _from_asset(name: str) -> RobotModel:
     return load_mjcf(os.path.join(k.ASSETS_DIR, f"{name}.xml"), name=name)
 
 
+def solo_arm() -> RobotModel:
+    return _from_asset("solo_arm")
+
+
+def dual_arm() -> RobotModel:
+    return _from_asset("dual_arm")
+
+
+def torso() -> RobotModel:
+    return _from_asset("torso")
+
+
+def _table_models():
+    """The builders of the three robots from the `_chains` tables (the
+    source `tools/gen_assets.py` writes the assets from), by short name."""
+    from gym_kmanip_torch.models import _chains as ch
+    from gym_kmanip_torch.models.spec import quat_from_euler_xyz_f32
+
+    base_r = [((0, 0, 0.5), ch.IDENT), ((0.5, 0.6, 0), ch.IDENT)]
+    base_l = [((0, 0, 0.5), ch.IDENT), ((-0.5, 0.6, 0), ch.IDENT)]
+
+    def _grip_cam(name, parent, target):
+        return dict(name=name, parent=parent, pos=(0, 0.05, 0), fovy=20, target_site=target)
+
+    def solo():
+        return build_model(
+            name="solo_arm",
+            joints=ch.right_arm_joints(base_r, 0),
+            sites=[ch.right_arm_site(0)],
+            cameras=ch.world_cameras() + [_grip_cam("grip_r", 6, "eer_site")],
+            fingertips=ch.right_arm_fingertips(0),
+            actuators=ch.right_arm_actuators(),
+            home_qpos=k.Q_SOLO_ARM_HOME,
+            mocap_pos0=np.array([[0.2, 0.6, 0.6]]),
+            mocap_quat0=np.array([[1.0, 0, 0, 0]]),
+        )
+
+    def dual():
+        return build_model(
+            name="dual_arm",
+            joints=ch.right_arm_joints(base_r, 0) + ch.left_arm_joints(base_l, 10),
+            sites=[ch.right_arm_site(0), ch.left_arm_site(10)],
+            cameras=ch.world_cameras()
+            + [_grip_cam("grip_r", 6, "eer_site"), _grip_cam("grip_l", 16, "eel_site")],
+            fingertips=ch.right_arm_fingertips(0) + ch.left_arm_fingertips(10),
+            actuators=ch.right_arm_actuators() + ch.left_arm_actuators(),
+            home_qpos=k.Q_DUAL_ARM_HOME,
+            mocap_pos0=np.array([[0.2, 0.6, 0.6], [-0.2, 0.6, 0.6]]),
+            mocap_quat0=np.array([[1.0, 0, 0, 0], [1.0, 0, 0, 0]]),
+        )
+
+    def torso_m():
+        root_frames = [
+            ((0, 0.2, 0.7), ch.IDENT),
+            ((0, 0, 0), quat_from_euler_xyz_f32((0, 0, 3.1416))),
+        ]
+        return build_model(
+            name="torso",
+            joints=ch.torso_joints(root_frames),
+            sites=ch.torso_sites(),
+            cameras=ch.world_cameras()
+            + [_grip_cam("grip_r", 10, "eer_site"), _grip_cam("grip_l", 19, "eel_site")],
+            fingertips=ch.torso_fingertips(),
+            actuators=ch.torso_actuators(),
+            home_qpos=k.Q_TORSO_HOME,
+            mocap_pos0=np.array([[0.2, 0.6, 0.6], [-0.2, 0.6, 0.6]]),
+            mocap_quat0=np.array([[1.0, 0, 0, 0], [1.0, 0, 0, 0]]),
+        )
+
+    return {"solo_arm": solo, "dual_arm": dual, "torso": torso_m}
+
+
 _REGISTRY = {
-    k.SOLO_ARM_MJCF: "solo_arm",
-    k.DUAL_ARM_MJCF: "dual_arm",
-    k.TORSO_MJCF: "torso",
-    "solo_arm": "solo_arm",
-    "dual_arm": "dual_arm",
-    "torso": "torso",
+    k.SOLO_ARM_MJCF: solo_arm,
+    k.DUAL_ARM_MJCF: dual_arm,
+    k.TORSO_MJCF: torso,
+    "solo_arm": solo_arm,
+    "dual_arm": dual_arm,
+    "torso": torso,
 }
 
 
 def get_model(key: str) -> RobotModel:
     """Built-in robot by MJCF filename or short name, or a user robot by
     path to any MJCF file the loader subset covers."""
-    name = _REGISTRY.get(key)
-    if name is not None:
-        return _from_asset(name)
+    fn = _REGISTRY.get(key)
+    if fn is not None:
+        return fn()
     if os.path.exists(key):
         from gym_kmanip_torch.models.mjcf import load_mjcf
 

@@ -116,21 +116,71 @@ class RobotModel:
         raise KeyError(name)
 
 
+_F32 = np.float32
+
+
+def _quat_mul_f32(a: NDArray, b: NDArray) -> NDArray:
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+    return np.array([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dtype=_F32)
+
+
+def _cross_f32(a: NDArray, b: NDArray) -> NDArray:
+    return np.array([a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                     a[0] * b[1] - a[1] * b[0]], dtype=_F32)
+
+
+def _quat_rotate_f32(q: NDArray, v: NDArray) -> NDArray:
+    uv = _cross_f32(q[1:], v)
+    return v + _F32(2.0) * (q[:1] * uv + _cross_f32(q[1:], uv))
+
+
+def _normalized_f32(q: NDArray) -> NDArray:
+    """q / |q| in float32, the squares summed in order."""
+    sq = q * q
+    return q / np.sqrt(((sq[0] + sq[1]) + sq[2]) + sq[3])
+
+
 def _compose(frames: List[Tuple[NDArray, NDArray]]) -> Tuple[NDArray, NDArray]:
-    """Compose a chain of (pos, quat) frames into one transform."""
+    """Compose a chain of (pos, quat) frames into one transform.
+
+    The robots' tables (models/_chains.py) are composed with float32
+    quaternion products, each frame's quaternion normalized in float64
+    first and the positions summed in float64, as the shipped assets hold
+    them. Every step is one IEEE float32 or float64 operation in a fixed
+    order, so the result is the same on every host."""
     pos = np.zeros(3)
-    quat = np.array([1.0, 0.0, 0.0, 0.0])
+    quat = np.array([1.0, 0.0, 0.0, 0.0], dtype=_F32)
     for p, q in frames:
         q = np.asarray(q, dtype=np.float64)
-        q = q / np.linalg.norm(q)
-        pos = pos + rot.quat_rotate_np(quat, p)
-        quat = rot.quat_mul_np(quat, q)
-    return pos, quat / np.linalg.norm(quat)
+        q = (q / np.linalg.norm(q)).astype(_F32)
+        pos = pos + _quat_rotate_f32(quat, np.asarray(p, dtype=np.float64).astype(_F32))
+        quat = _quat_mul_f32(quat, q)
+    return pos, _normalized_f32(quat)
 
 
 def quat_from_euler_xyz_np(e) -> NDArray:
     """MJCF <body euler> (extrinsic xyz) -> wxyz quat."""
     return rot.euler_xyz_to_quat_np(e)
+
+
+def quat_from_euler_xyz_f32(e) -> NDArray:
+    """`quat_from_euler_xyz_np` in float32, the arithmetic of the robots'
+    tables: the angles rounded to float32, each half angle's cosine and
+    sine rounded from float64."""
+    half = _F32(0.5) * np.asarray(np.asarray(e, dtype=np.float64), dtype=_F32)
+    c = np.cos(half.astype(np.float64)).astype(_F32)
+    s = np.sin(half.astype(np.float64)).astype(_F32)
+    z = _F32(0.0)
+    qx = np.array([c[0], s[0], z, z], dtype=_F32)
+    qy = np.array([c[1], z, s[1], z], dtype=_F32)
+    qz = np.array([c[2], z, z, s[2]], dtype=_F32)
+    return _quat_mul_f32(qz, _quat_mul_f32(qy, qx))
 
 
 def _mass_class(name: str) -> str:

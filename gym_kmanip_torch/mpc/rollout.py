@@ -62,6 +62,20 @@ def broadcast_state(state: SimState, n: int) -> SimState:
     return SimState(*(x.expand((n,) + tuple(x.shape)).contiguous() for x in state))
 
 
+def _rollout_steps(model, state0, ctrl_seq, cost_fn, n_substeps, dt, contact,
+                   implicit_actuation, substep_fn):
+    """(state, running cost (K,)) after each of the H steps of K control
+    sequences (K, H, nu) from one unbatched state."""
+    state = broadcast_state(state0, ctrl_seq.shape[0])
+    steps = ctrl_seq.transpose(0, 1).contiguous()  # (H, K, nu): each step contiguous
+    for ctrl in steps:
+        state, aux = mpc_step(
+            model, state, ctrl, n_substeps, dt, contact=contact,
+            implicit_actuation=implicit_actuation, substep_fn=substep_fn,
+        )
+        yield state, cost_fn(state, aux, ctrl)
+
+
 def rollout(model: RobotModel, state0: SimState, ctrl_seq: torch.Tensor,
             cost_fn: Callable, n_substeps: int = 1,
             dt: float = k.CONTROL_TIMESTEP, contact: bool = True,
@@ -71,14 +85,23 @@ def rollout(model: RobotModel, state0: SimState, ctrl_seq: torch.Tensor,
     returns (total cost (K,), final states (K, ...)).
 
     `cost_fn(state, aux, ctrl) -> (K,)` is the running cost of a step."""
-    state = broadcast_state(state0, ctrl_seq.shape[0])
-    steps = ctrl_seq.transpose(0, 1).contiguous()  # (H, K, nu): each step contiguous
     total = None
-    for ctrl in steps:
-        state, aux = mpc_step(
-            model, state, ctrl, n_substeps, dt, contact=contact,
-            implicit_actuation=implicit_actuation, substep_fn=substep_fn,
-        )
-        c = cost_fn(state, aux, ctrl)
+    for state, c in _rollout_steps(model, state0, ctrl_seq, cost_fn, n_substeps, dt, contact,
+                                   implicit_actuation, substep_fn):
         total = c if total is None else total + c
     return total, state
+
+
+def rollout_with_traj(model: RobotModel, state0: SimState, ctrl_seq: torch.Tensor,
+                      cost_fn: Callable, n_substeps: int = 1,
+                      dt: float = k.CONTROL_TIMESTEP, contact: bool = True,
+                      implicit_actuation: bool = True, substep_fn: Callable = substep
+                      ) -> Tuple[torch.Tensor, SimState, torch.Tensor]:
+    """`rollout` that also returns the per-step cost trace: (total (K,),
+    final states, costs (K, H)); the total is the trace's sum."""
+    costs = []
+    for state, c in _rollout_steps(model, state0, ctrl_seq, cost_fn, n_substeps, dt, contact,
+                                   implicit_actuation, substep_fn):
+        costs.append(c)
+    costs = torch.stack(costs, dim=-1)
+    return costs.sum(dim=-1), state, costs

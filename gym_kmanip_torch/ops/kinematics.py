@@ -111,6 +111,52 @@ def mass_matrix_from_frames(model: RobotModel, xpos, xquat, axis_w) -> torch.Ten
     return M + torch.diag(t.armature)
 
 
+def mass_matrix(model: RobotModel, qpos: torch.Tensor) -> torch.Tensor:
+    """Joint-space inertia M(q) (..., nq, nq) of qpos (..., nq): FK, then
+    the COM-Jacobian contraction of `mass_matrix_from_frames`."""
+    return mass_matrix_from_frames(model, *fk(model, qpos))
+
+
+def gravity_potential(model: RobotModel, qpos: torch.Tensor, g: float = 9.81) -> torch.Tensor:
+    """Potential energy U(q) = sum_i m_i g z_com_i, (...) of qpos (..., nq)."""
+    t = model_tensors(model, qpos.device)
+    xpos, xquat, _ = fk(model, qpos)
+    com_w = xpos + rot.quat_rotate(xquat, t.body_com)
+    return g * torch.sum(t.body_mass * com_w[..., 2], dim=-1)
+
+
+def bias_forces(model: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
+    """qfrc_bias = C(q,v)v + g(q) (..., nq); see `rnea_terms`."""
+    return rnea_terms(model, qpos, qvel)[3]
+
+
+def bias_forces_ad(model: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
+    """qfrc_bias = C(q,v)v + g(q) (..., nq) by autodiff of the Lagrangian,
+    the oracle the RNEA (`bias_forces`, and K5 on the card) is held to.
+
+    C v = dM/dt v - 1/2 d(v^T M v)/dq, with dM/dt v one jvp of q -> M(q) v
+    along v; gravity is dU/dq. The states of a batch are independent, so
+    the gradients of the batch's summed energies are each state's own. The
+    states are flattened into a batch of at least one: torch.func's forward
+    mode promotes the tangent of a 0-dim tensor times a Python float to
+    float64."""
+    nq = model.nq
+    batch = torch.broadcast_shapes(qpos.shape[:-1], qvel.shape[:-1])
+    q = qpos.expand(batch + (nq,)).reshape(-1, nq)
+    v = qvel.expand(batch + (nq,)).reshape(-1, nq)
+
+    def m_v(x):
+        return (mass_matrix(model, x) @ v[..., None])[..., 0]
+
+    def kinetic(x):
+        return 0.5 * torch.sum(v * m_v(x))
+
+    dm_dt_v = torch.func.jvp(m_v, (q,), (v,))[1]
+    dt_dq = torch.func.grad(kinetic)(q)
+    du_dq = torch.func.grad(lambda x: torch.sum(gravity_potential(model, x)))(q)
+    return (dm_dt_v - dt_dq + du_dq).reshape(batch + (nq,))
+
+
 def rnea_terms_fast(model: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor):
     """`rnea_terms` through the FK + RNEA kernel (ops/rnea_cuda, K5) on the
     card: the leading dimensions broadcast and flatten into its batch (an

@@ -99,6 +99,18 @@ def load_conv(layer: nn.Conv2d, p: Dict[str, np.ndarray]):
         layer.bias.copy_(_f32(p["bias"]))
 
 
+def dense_params(layer: nn.Linear) -> Dict[str, np.ndarray]:
+    """A Linear's parameters as a flax Dense's {"kernel" (in, out), "bias"}."""
+    return {"kernel": layer.weight.detach().T.float().cpu().numpy(),
+            "bias": layer.bias.detach().float().cpu().numpy()}
+
+
+def conv_params(layer: nn.Conv2d) -> Dict[str, np.ndarray]:
+    """A Conv2d's parameters as a flax Conv's {"kernel" (HWIO), "bias"}."""
+    return {"kernel": layer.weight.detach().permute(2, 3, 1, 0).float().cpu().numpy(),
+            "bias": layer.bias.detach().float().cpu().numpy()}
+
+
 def dense(p: Dict[str, np.ndarray]) -> nn.Linear:
     """A Linear holding a flax Dense's parameters, sized from its kernel."""
     n_in, n_out = np.shape(p["kernel"])

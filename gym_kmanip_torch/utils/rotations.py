@@ -66,6 +66,37 @@ def quat_conj(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
+def quat_inv(q: torch.Tensor) -> torch.Tensor:
+    """Inverse for (approximately) unit quaternions."""
+    return quat_conj(q)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse of q: R(q)^T @ v."""
+    return quat_rotate(quat_conj(q), v)
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation matrix -> unit quaternion (wxyz), MuJoCo's mju_mat2Quat.
+
+    Branch-free like the JAX version: the four Shepperd candidates, the one
+    with the largest pivot selected per matrix, normalized, w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22], dim=-1)
+    case = torch.argmax(pivots, dim=-1)[..., None]
+    q = torch.where(case == 0, qw, torch.where(case == 1, qx, torch.where(case == 2, qy, qz)))
+    q = normalize(q)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def quat_log(q: torch.Tensor) -> torch.Tensor:
     """Log map: unit quaternion -> rotation vector (angle * axis), the angle
     wrapped to (-pi, pi]; near the identity angle/|v| -> 2/w (the JAX
@@ -117,6 +148,12 @@ def euler_xyz_to_quat(euler: torch.Tensor) -> torch.Tensor:
     qy = quat_from_axis_angle(torch.stack([zero, one, zero], -1), ey)
     qz = quat_from_axis_angle(torch.stack([zero, zero, one], -1), ez)
     return quat_mul(qz, quat_mul(qy, qx))
+
+
+def euler_seq_to_quat(euler: torch.Tensor) -> torch.Tensor:
+    """MJCF <body euler="...">: MuJoCo's default eulerseq="xyz" is extrinsic
+    x-y-z, as `euler_xyz_to_quat`."""
+    return euler_xyz_to_quat(euler)
 
 
 def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,10 @@ file fails loudly instead of mis-loading.
 
 `bc_mlp` and `bc_pixels_cnn` build the two architectures fresh, with
 flax's default init (LeCun normal kernels, zero biases) drawn from a seeded
-torch generator: examples 13 and 15 train them.
+torch generator: examples 13 and 15 train them, and `flax_params` turns a
+trained net back into the artifacts' layout for `save_policy` (the zoo's
+train-and-ship tools, `gym_kmanip_torch/tools/train_zoo*.py` and
+`select_zoo.py`).
 
 `load_policy` returns `policy(SimState) -> ctrl` over any leading batch
 of states (one call serves N robots), on the card unless `device` says
@@ -32,13 +35,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from gym_kmanip_torch import constants as k
 from gym_kmanip_torch.models import canonical_device, get_model
 from gym_kmanip_torch.render.raycast import render_camera
 from gym_kmanip_torch.utils.flax_layers import (
-    SameConv, dense, flatten_hwc, flax_init_, images_nchw, inner, load_conv, same_side)
+    SameConv, conv_params, dense, dense_params, flatten_hwc, flax_init_, images_nchw, inner,
+    load_conv, same_side)
 
-_ZOO_DIR = os.path.join(os.path.dirname(k.ASSETS_DIR), "zoo")
+# the JAX package's shipped artifacts, read by path
+_ZOO_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "gym_kmanip_tpu", "zoo",
+)
 _FORMAT_VERSION = 1
 _ARCHS = ("bc_mlp", "bc_pixels_cnn")
 
@@ -123,6 +130,22 @@ def bc_pixels_cnn_from_flax(params) -> BCPixelsCNN:
     return net
 
 
+def flax_params(net: nn.Module) -> Dict[str, Any]:
+    """A `bc_mlp` or `bc_pixels_cnn` net's parameters in the flax layout the
+    artifacts hold ({"params": {"Dense_i" / "Conv_i": {"kernel", "bias"}}}),
+    as numpy arrays: the inverse of `bc_mlp_from_flax` /
+    `bc_pixels_cnn_from_flax`."""
+    if isinstance(net, BCMLP):
+        p = {f"Dense_{i}": dense_params(layer) for i, layer in enumerate(net.layers)}
+    elif isinstance(net, BCPixelsCNN):
+        p = {f"Conv_{i}": conv_params(conv) for i, conv in enumerate(net.convs)}
+        p.update({f"Dense_{i}": dense_params(layer)
+                  for i, layer in enumerate((net.dense0, net.dense1, net.dense2))})
+    else:
+        raise TypeError(f"no flax layout for {type(net).__name__}")
+    return {"params": p}
+
+
 def _flatten_params(tree, prefix="p:"):
     """Nested dicts of arrays -> {key path: array}."""
     out = {}
@@ -178,8 +201,8 @@ def load_artifact(name_or_path: str) -> PolicyArtifact:
                                     if key.startswith("p:")})
     if int(meta.get("format_version", -1)) != _FORMAT_VERSION:
         raise ValueError(f"policy artifact format {meta.get('format_version')} != "
-                         f"{_FORMAT_VERSION} (re-train it with the JAX package's "
-                         f"tools/train_zoo.py)")
+                         f"{_FORMAT_VERSION} (re-train it with "
+                         f"gym_kmanip_torch/tools/train_zoo.py)")
     return PolicyArtifact(params, stats, meta)
 
 

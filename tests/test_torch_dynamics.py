@@ -26,7 +26,6 @@ from gym_kmanip_tpu.dynamics import contacts as jcontacts
 from gym_kmanip_tpu.dynamics.engine import _substep_jnp
 from gym_kmanip_tpu.dynamics.state import SimState as JSimState
 from gym_kmanip_tpu.models import get_model as jax_get_model
-from gym_kmanip_tpu.ops import kinematics as jkin
 from gym_kmanip_tpu.ops import linalg as jlinalg
 from gym_kmanip_tpu.ops.pallas_contacts import _contacts_kernel
 from gym_kmanip_tpu.ops.pallas_dynamics import _rnea_kernel
@@ -91,41 +90,46 @@ def test_rotations_match_jax():
 
 @functools.lru_cache(maxsize=None)
 def _jax_rnea(name):
-    """(JAX model, port model, q, v, JAX rnea_terms_fast under vmap) on the
-    inputs of tests/test_pallas.py:56-73 (K=4). On the CPU the JAX seam runs
-    `jax.vmap(rnea_terms)`, so this one eager evaluation serves both the
-    kinematics test and the K5 test."""
+    """(JAX model, port model, q, v, {JAX output: array}) on the inputs of
+    tests/test_pallas.py:56-73 (K=4). The outputs are the JAX seam
+    `kinematics.rnea_terms_fast` under vmap (on the CPU it runs
+    `jax.vmap(rnea_terms)`), and on the torso `fk`, `all_site_poses` and
+    `mass_matrix_from_frames` under vmap, read from tests/golden/rnea_refs.npz
+    (`python tools/make_golden_rnea.py`: ~15-20 s of eager op compiles),
+    which holds the inputs too."""
     jm = jax_get_model(name)
     m = from_numpy_model(jm)
     rng = np.random.RandomState(0)
     q = rng.uniform(m.jnt_range[:, 0].clip(-3), m.jnt_range[:, 1].clip(max=3),
                     (4, m.nq)).astype(np.float32)
     v = (rng.randn(4, m.nq) * 0.4).astype(np.float32)
-    return jm, m, q, v, jax.vmap(lambda a, b: jkin.rnea_terms_fast(jm, a, b))(q, v)
+    with np.load(os.path.join(os.path.dirname(__file__), "golden", "rnea_refs.npz")) as g:
+        ref = {key[len(name) + 1:]: g[key] for key in g.files if key.startswith(f"{name}/")}
+    np.testing.assert_array_equal(ref["q"], q)
+    np.testing.assert_array_equal(ref["v"], v)
+    return jm, m, q, v, ref
 
 
 def test_kinematics_match_jax():
     """On the torso, the branching 20-dof tree (the solo arm's frames are
     held by the substep test)."""
-    jm, m, q, v, want = _jax_rnea("torso")
+    jm, m, q, v, ref = _jax_rnea("torso")
     got = kin.rnea_terms(m, _t(q), _t(v))
-    for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-4)):
-        _close(g, w, tol)
+    for g, key, tol in zip(got, ("xpos", "xquat", "axis", "bias"), (1e-5, 1e-5, 1e-5, 1e-4)):
+        _close(g, ref[f"seam/{key}"], tol)
 
     xp, xq, ax = kin.fk(m, _t(q))
-    jxp, jxq, jax_ = jax.vmap(lambda a: jkin.fk(jm, a))(q)
-    for g, w in ((xp, jxp), (xq, jxq), (ax, jax_)):
-        _close(g, w, 1e-5)
+    for g, key in ((xp, "xpos"), (xq, "xquat"), (ax, "axis")):
+        _close(g, ref[f"fk/{key}"], 1e-5)
     sp, sq = kin.all_site_poses(m, xp, xq)
-    jsp, jsq = jax.vmap(lambda a, b: jkin.all_site_poses(jm, a, b))(jxp, jxq)
+    jsp, jsq = ref["fk/site_pos"], ref["fk/site_quat"]
     _close(sp, jsp, 1e-5)
     _close(sq, jsq, 1e-5)
     p0, q0 = kin.site_pose(m, xp, xq, "eer_site")
     _close(p0, jsp[:, jm.site_index("eer_site")], 1e-5)
     _close(q0, jsq[:, jm.site_index("eer_site")], 1e-5)
     M = kin.mass_matrix_from_frames(m, xp, xq, ax)
-    jM = jax.vmap(lambda a, b, c: jkin.mass_matrix_from_frames(jm, a, b, c))(jxp, jxq, jax_)
-    _close(M, jM, 1e-5)
+    _close(M, ref["fk/M"], 1e-5)
 
 
 def test_contact_forces_match_jax(solo):
@@ -183,7 +187,8 @@ def test_rnea_terms_fast_matches_jax(name):
     kernel `_rnea_kernel` (run eagerly: interpret mode costs 13-23 s here,
     and tests/test_pallas.py:55-88 already runs it), on the inputs of
     tests/test_pallas.py:56-73: frames 1e-5, bias 1e-4 (:85-88)."""
-    jm, m, q, v, seam = _jax_rnea(name)
+    jm, m, q, v, ref = _jax_rnea(name)
+    seam = tuple(ref[f"seam/{key}"] for key in ("xpos", "xquat", "axis", "bias"))
     K, nq = q.shape
     got = kin.rnea_terms_fast(m, _t(q), _t(v))
     xp, xq, ax, bias = _pallas_outputs(partial(_rnea_kernel, jm, -9.81),

@@ -28,7 +28,6 @@ from jax.experimental import pallas as pl
 
 from gym_kmanip_tpu.dynamics.state import init_state as jinit_state
 from gym_kmanip_tpu.models import get_model as jax_get_model
-from gym_kmanip_tpu.mpc.rollout import mpc_step as jmpc_step
 from gym_kmanip_tpu.ops import pallas_riccati
 from gym_kmanip_tpu.solvers import ilqr as jilqr
 
@@ -50,7 +49,10 @@ def solo():
 
 def test_rollout_feedback_plain_matches_jax_forward(solo):
     """The JAX scan forward of test_pallas.py:346-366 (reduced layout, the
-    cube from the template), H=3, alpha in {0, 0.3, 1}."""
+    cube from the template), H=3, alpha in {0, 0.3, 1}, read from
+    tests/golden/feedback_refs.npz (`python tools/make_golden_feedback.py`:
+    one jitted vmap of the scan, ~14 s of XLA compile), with the inputs it
+    was made from."""
     jm, m, js0, s0 = solo
     H, n, nu = 3, 2 * m.nq, m.nu
     rng = np.random.RandomState(5)
@@ -60,25 +62,12 @@ def test_rollout_feedback_plain_matches_jax_forward(solo):
     ks = (0.03 * rng.randn(H, nu)).astype(np.float32)
     Ks = (0.05 * rng.randn(H, nu, n)).astype(np.float32)
     alphas = np.array([0.0, 0.3, 1.0], np.float32)
-    lo = jnp.asarray(jm.ctrl_range[:, 0], jnp.float32)
-    hi = jnp.asarray(jm.ctrl_range[:, 1], jnp.float32)
+    with np.load(os.path.join(os.path.dirname(__file__), "golden", "feedback_refs.npz")) as g:
+        for name, a in (("x0", x0), ("us_nom", us_nom), ("xs_nom", xs_nom), ("ks", ks),
+                        ("Ks", Ks), ("alphas", alphas)):
+            np.testing.assert_array_equal(g[name], a, err_msg=name)
+        xs_ref, us_ref = g["xs"], g["us"]
 
-    def f_fast(x, u):
-        s = jilqr.unflatten_state(jm, x, js0)
-        s2, _ = jmpc_step(jm, s, u, 1, 0.02, contact=False, unrolled_solve=True)
-        return jilqr.flatten_state(s2, reduced=True)
-
-    def forward(alpha):
-        def body(x, inp):
-            x_nom, u_nom, kff, K = inp
-            u = jnp.clip(u_nom + alpha * kff + K @ (x - x_nom), lo, hi)
-            x2 = jax.vmap(f_fast)(x[None], u[None])[0]
-            return x2, (x2, u)
-
-        _, (xs_t, us_t) = jax.lax.scan(body, jnp.asarray(x0), (xs_nom, us_nom, ks, Ks))
-        return xs_t, us_t
-
-    xs_ref, us_ref = jax.jit(jax.vmap(forward))(alphas)
     t = torch.as_tensor
     cube0 = torch.cat([s0.cube_pos, s0.cube_quat, s0.cube_linvel, s0.cube_angvel])
     before = rollout_feedback_cuda.rollout_feedback.launches

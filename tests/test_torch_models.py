@@ -6,6 +6,7 @@ in practice the floats are bit-equal).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -59,8 +60,8 @@ def test_constants_match_jax():
     names = [n for n in dir(tk) if n.isupper()]
     assert len(names) >= 40
     for n in names:
-        if n == "ASSETS_DIR":
-            assert tk.ASSETS_DIR == jk.ASSETS_DIR
+        if n == "ASSETS_DIR":  # the port's own copies (tests/test_torch_assets.py)
+            assert tk.ASSETS_DIR == os.path.join(os.path.dirname(tk.__file__), "assets")
             continue
         want, got = getattr(jk, n), getattr(tk, n)
         if isinstance(want, np.ndarray):

@@ -1,12 +1,18 @@
 """The port's rollout, pick cost and MPPI solve against the JAX package.
 
 Inputs are made with numpy from a seed; the MPPI noise is JAX's own draw
-(its key split and `sample_noise`), injected into the port's solve.
+(its key split and `sample_noise`), injected into the port's solve. The
+JAX package's rollouts and solves on these inputs are read from
+tests/golden/mppi_refs.npz (`python tools/make_golden_mppi.py`: one jitted
+program of ~56 s of XLA compile on an 8-core x86 host), which also holds
+the inputs it was made from; the fixture checks them against its own.
 Tolerances are those of tests/test_pallas.py: rollout totals 1e-5 at H=1,
 1e-3 at H=3 and 1e-4 at H=3 with two 2 ms substeps; u0 1e-5, J 1e-4,
 nominal 1e-5. The fused pick-cost rollout (K2) runs its plain version here,
 on CPU tensors; tests/test_torch_cuda.py holds the kernel to it.
 """
+
+import os
 
 import jax
 import numpy as np
@@ -18,19 +24,21 @@ from gym_kmanip_tpu.models import get_model as jax_get_model
 from gym_kmanip_tpu.mpc import mppi as jmppi
 from gym_kmanip_tpu.mpc.cost import CostParams as JCostParams
 from gym_kmanip_tpu.mpc.cost import cube_pick_cost as jcube_pick_cost
-from gym_kmanip_tpu.mpc.rollout import rollout_with_traj as jrollout_with_traj
 from gym_kmanip_tpu.ops.pallas_substep import PickCostSpec as JPickCostSpec
 
 from gym_kmanip_torch.dynamics.state import state_from_numpy
 from gym_kmanip_torch.models import from_numpy_model
 from gym_kmanip_torch.mpc import mppi
 from gym_kmanip_torch.mpc.cost import CostParams, cube_pick_cost
-from gym_kmanip_torch.mpc.rollout import rollout
+from gym_kmanip_torch.mpc.rollout import rollout, rollout_with_traj
 from gym_kmanip_torch.ops import rollout_pick_cuda
 
 torch.set_num_threads(1)
 
 K, H = 8, 3
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "mppi_refs.npz")
+STATE_FIELDS = ("qpos", "qvel", "ctrl", "cube_pos", "cube_quat", "cube_linvel", "cube_angvel",
+                "time")
 
 
 @pytest.fixture(scope="module")
@@ -52,31 +60,26 @@ def _close(got, want, atol, msg=""):
 @pytest.fixture(scope="module")
 def jax_refs(solo):
     """The JAX package's results that the rollout and MPPI tests compare
-    against, in ONE compiled program (one XLA compile instead of three):
-    `rollout_with_traj` on seeded sequences at the MPC rate (dt=0.02, one
-    substep) and at env fidelity (dt=0.002, two substeps), and the MPPI
-    solve of `make_mppi_solver` at H=3 with one iteration and with two."""
+    against (tests/golden/mppi_refs.npz): `rollout_with_traj` on seeded
+    sequences at the MPC rate (dt=0.02, one substep) and at env fidelity
+    (dt=0.002, two substeps), and the MPPI solve of `make_mppi_solver` at
+    H=3 with one iteration and with two, with the noise each drew."""
     jm, m, jcost, _ = solo
     rng = np.random.RandomState(3)
     U = (jm.home_qpos[: jm.nu] + 0.1 * rng.randn(K, H, jm.nu)).astype(np.float32)
+    with np.load(GOLDEN) as g:
+        ref = {key: g[key] for key in g.files}
+    # the golden was made from these inputs
+    np.testing.assert_array_equal(ref["U"], U)
     js0 = jinit_state(jm)
-    jcfg = jmppi.MPPIConfig(horizon=H, n_samples=K)
-    jms = jmppi.init_mppi(jm, jcfg)
-    solver = jmppi.make_mppi_solver(jm, jcfg, jcost)
-    jcfg2 = jmppi.MPPIConfig(horizon=H, n_samples=K, n_iters=2)
-    solver2 = jmppi.make_mppi_solver(jm, jcfg2, jcost)
-
-    def refs(U):
-        totals = {}
-        for dt, n_substeps in ((0.02, 1), (0.002, 2)):
-            total, _, steps = jax.vmap(lambda u: jrollout_with_traj(
-                jm, js0, u, jcost, n_substeps=n_substeps, dt=dt))(U)
-            totals[dt] = (steps[:, 0], total)
-        return totals, solver(jms, js0), solver2(jms, js0)
-
-    totals, mppi_out, mppi2_out = jax.jit(refs)(U)
-    return dict(U=U, js0=js0, jcfg=jcfg, jms=jms, mppi=mppi_out, jcfg2=jcfg2, mppi2=mppi2_out,
-                totals={dt: tuple(np.asarray(a) for a in v) for dt, v in totals.items()})
+    for f in STATE_FIELDS:
+        np.testing.assert_array_equal(ref[f"s0/{f}"], np.asarray(getattr(js0, f)), err_msg=f)
+    return dict(U=U, js0=js0,
+                mppi=tuple(ref[f"mppi1/{n}"] for n in ("nominal", "u0", "J", "eps")),
+                mppi2=tuple(ref[f"mppi2/{n}"] for n in ("nominal", "u0", "J", "eps")),
+                steps={dt: ref[f"steps/{dt}"] for dt in (0.02, 0.002)},
+                totals={dt: (ref[f"steps/{dt}"][:, 0], ref[f"total/{dt}"])
+                        for dt in (0.02, 0.002)})
 
 
 def _rollout_totals(solo, jax_refs, dt, n_substeps):
@@ -115,6 +118,23 @@ def test_rollout_totals_at_env_fidelity_match_jax(solo, jax_refs):
         _close(g, want3, 1e-4, "H=3")
 
 
+@pytest.mark.parametrize("dt,n_substeps,atol", [(0.02, 1, 1e-3), (0.002, 2, 1e-4)])
+def test_rollout_with_traj_matches_jax(solo, jax_refs, dt, n_substeps, atol):
+    """The per-step cost trace (K, H) against JAX's `rollout_with_traj`'s,
+    at the H=3 total's band of each fidelity, and its sum against
+    `rollout`'s total."""
+    jm, m, jcost, cost = solo
+    U = torch.as_tensor(jax_refs["U"])
+    s0 = state_from_numpy(jax_refs["js0"], device="cpu")
+    total, final, costs = rollout_with_traj(m, s0, U, cost, n_substeps=n_substeps, dt=dt)
+    assert costs.shape == (K, H) and final.qpos.shape == (K, m.nq)
+    _close(costs, jax_refs["steps"][dt], atol, "per-step costs")
+    _close(total, costs.sum(-1), 0.0, "total")
+    want, final_r = rollout(m, s0, U, cost, n_substeps=n_substeps, dt=dt)
+    _close(total, want, 1e-5, "rollout's total")
+    _close(final.qpos, final_r.qpos, 0.0, "final qpos")
+
+
 def test_pick_cost_spec_defaults_match_cost_params():
     spec, params = rollout_pick_cuda.PickCostSpec(), CostParams()
     for f in ("w_vel", "w_grip_dist", "w_touch", "w_lift", "w_ctrl"):
@@ -140,19 +160,15 @@ def test_fused_pick_solver_matches_plain_mppi(solo):
 def test_mppi_solve_matches_jax_with_injected_noise(solo, jax_refs):
     jm, m, jcost, cost = solo
     cfg = mppi.MPPIConfig(horizon=H, n_samples=K)
-    jcfg, jms, js0 = jax_refs["jcfg"], jax_refs["jms"], jax_refs["js0"]
-    ms_j, u0_j, J_j = jax_refs["mppi"]
+    js0 = jax_refs["js0"]
+    nominal_j, u0_j, J_j, eps = jax_refs["mppi"]
     # the draw JAX's solve made: its key split, then sample_noise
-    _, sub = jax.random.split(jms.rng)
-    eps = jmppi.sample_noise(sub, K, H, jm.nu, jmppi.sigma_per_actuator(jm, jcfg.sigma),
-                             jcfg.noise_beta)
-
     ms = mppi.init_mppi(m, cfg, seed=0, device="cpu")
     solve = mppi.make_mppi_solver(m, cfg, cost)
-    ms2, u0, J = solve(ms, state_from_numpy(js0, device="cpu"), eps=torch.as_tensor(np.array(eps)))
+    ms2, u0, J = solve(ms, state_from_numpy(js0, device="cpu"), eps=torch.as_tensor(eps[0]))
     _close(u0, u0_j, 1e-5, "u0")
     _close(J, J_j, 1e-4, "J")
-    _close(ms2.nominal, ms_j.nominal, 1e-5, "nominal")
+    _close(ms2.nominal, nominal_j, 1e-5, "nominal")
     assert ms2.generator is ms.generator
 
     with pytest.raises(ValueError):
@@ -165,21 +181,16 @@ def test_mppi_two_iterations_match_jax_with_injected_noise(solo, jax_refs):
     distances: u0 1.49e-8, nominal 1.19e-7, J equal; held at the
     one-iteration test's tolerances."""
     jm, m, _, cost = solo
-    jcfg2, jms, js0 = jax_refs["jcfg2"], jax_refs["jms"], jax_refs["js0"]
-    ms_j, u0_j, J_j = jax_refs["mppi2"]
-    sigma = jmppi.sigma_per_actuator(jm, jcfg2.sigma)
-    rng, draws = jms.rng, []
-    for _ in range(2):
-        rng, sub = jax.random.split(rng)
-        draws.append(np.array(jmppi.sample_noise(sub, K, H, jm.nu, sigma, jcfg2.noise_beta)))
+    js0 = jax_refs["js0"]
+    nominal_j, u0_j, J_j, draws = jax_refs["mppi2"]
     cfg = mppi.MPPIConfig(horizon=H, n_samples=K, n_iters=2)
     solve = mppi.make_mppi_solver(m, cfg, cost)
     ms = mppi.init_mppi(m, cfg, seed=0, device="cpu")
     s0 = state_from_numpy(js0, device="cpu")
-    ms2, u0, J = solve(ms, s0, eps=torch.as_tensor(np.stack(draws)))
+    ms2, u0, J = solve(ms, s0, eps=torch.as_tensor(draws))
     _close(u0, u0_j, 1e-5, "u0")
     _close(J, J_j, 1e-4, "J")
-    _close(ms2.nominal, ms_j.nominal, 1e-5, "nominal")
+    _close(ms2.nominal, nominal_j, 1e-5, "nominal")
     with pytest.raises(ValueError):
         solve(ms, s0, eps=torch.as_tensor(draws[0]))  # one draw for two iterations
 

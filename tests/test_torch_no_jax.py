@@ -156,6 +156,30 @@ _SCRIPT = textwrap.dedent(
                    dict(sim_time=0.0, cpu_time=0.0, episode=3, step=1, q_keys=[], cameras=[]))
     log_rerun.end()
     assert len(open(os.path.join(d, "episode_3.rrd.jsonl")).readlines()) == 2
+    # the robots' tables and asset generator, the dynamics identities, the
+    # rotation helpers, rollout_with_traj, and the zoo tools' shipping
+    from gym_kmanip_torch.constants import ASSETS_DIR
+    from gym_kmanip_torch.models import _table_models
+    from gym_kmanip_torch.mpc.rollout import rollout_with_traj
+    from gym_kmanip_torch.ops import kinematics as kin
+    from gym_kmanip_torch.tools import gen_assets, train_zoo
+    from gym_kmanip_torch.utils import rotations as rot
+    xml = gen_assets.build_asset_xml(_table_models()["solo_arm"]())
+    assert xml == open(os.path.join(ASSETS_DIR, "solo_arm.xml")).read()
+    bias = kin.bias_forces(m, b.qpos, b.qvel + 0.1)
+    assert torch.allclose(kin.bias_forces_ad(m, b.qpos, b.qvel + 0.1), bias, atol=1e-4, rtol=1e-4)
+    q4 = rot.mat_to_quat(rot.quat_to_mat(s.cube_quat))
+    assert torch.allclose(q4, s.cube_quat) and torch.equal(rot.quat_inv(q4), rot.quat_conj(q4))
+    total, _, costs = rollout_with_traj(m, s, s.ctrl.repeat(2, 2, 1),
+                                        lambda st, aux, u: cube_pick_cost(m, st, aux, u, params))
+    assert costs.shape == (2, 2) and torch.equal(total, costs.sum(-1))
+    net = zoo.bc_mlp(m.nu, 8, 1, in_dim=2 * m.nq + 7, device="cpu")
+    stats = dict(mu=np.zeros(2 * m.nq + 7, np.float32), sd=np.ones(2 * m.nq + 7, np.float32),
+                 mid=np.zeros(m.nu), half=np.ones(m.nu))
+    art = os.path.join(d, "bc_pick_solo.npz")
+    assert train_zoo.ship(art, net, stats, dict(arch="bc_mlp", model="solo_arm",
+                                                eval_success_rate=0.5))
+    assert zoo.load_policy(art, device="cpu")[0](s).shape == (m.nu,)
     try:
         kenv.register()
         raise AssertionError("register() ran without gymnasium")
@@ -177,4 +201,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     ok, n_modules = proc.stdout.split()[-2:]
-    assert ok == "OK" and int(n_modules) >= 77
+    assert ok == "OK" and int(n_modules) >= 83

@@ -1,9 +1,11 @@
 """The port's raycaster (render/raycast.py) against the JAX package's
 `gym_kmanip_tpu/render/raycast.py`, on the CPU.
 
-One module-scoped JAX program, jitted once (~40 s of XLA compile with a
-cold cache on an 8-core x86 host, nearly all of it the twelve vmapped
-frame renders):
+The JAX package's outputs are read from tests/golden/render_refs.npz,
+written by `python tools/make_golden_render.py` from this module's own
+inputs with ONE jitted JAX program (~30-40 s of XLA compile on an 8-core
+x86 host, nearly all of it the twelve vmapped frame renders); the file
+holds the inputs too, and the fixture checks them against its own:
 - JAX's five intersection functions on the same seeded rays, each ray set
   also turned by 1e-5 rad two ways, so that a ray whose JAX hit or normal
   changes under that turn counts as grazing;
@@ -23,8 +25,8 @@ torso frame, 100% for the others).
 """
 
 import dataclasses
+import os
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -54,6 +56,8 @@ MESH_TRIS = (
     (-1, np.array([[[-0.25, 0.45, 0.66], [0.35, 0.45, 0.66], [0.05, 0.85, 0.70]]], np.float32)),
 )
 P = 192
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "render_refs.npz")
+FAMILIES = ("spheres", "capsules", "box", "triangles", "floor")
 
 
 def _unit(x):
@@ -114,33 +118,23 @@ def jax_refs():
     prim = _primitive_inputs()
     rng = np.random.default_rng(3)
     states = {name: _states(jax_model(name), rng) for name in ("solo_arm", "dual_arm", "torso")}
-    jm_mesh, _ = _mesh_models()
-
-    def refs(prim, states):
-        def per_rays(d):
-            o = prim["o"]
-            return dict(
-                spheres=jr._ray_spheres(o, d, prim["centers"], prim["radii"]),
-                capsules=jr._ray_capsules(o, d, prim["pa"], prim["pb"], prim["cap_r"]),
-                box=jr._ray_box(o, d, *prim["box"]),
-                triangles=jr._ray_triangles(o, d, prim["tris"]),
-                floor=(jr._ray_floor(o, d),),
-            )
-
-        out = dict(prim=jax.vmap(per_rays)(prim["ds"]))
-        for name, cam, (h, w) in FRAMES:
-            jm = jax_model(name)
-            out[f"{name}/{cam}"] = jax.vmap(
-                lambda q, c, r: jr.render_camera(jm, cam, q, c, r, h, w))(*states[name])
-        out["mesh"] = jax.vmap(
-            lambda q, c, r: jr.render_camera(jm_mesh, "top", q, c, r, 12, 15))(*states["solo_arm"])
-        return out
-
-    out = jax.jit(refs)(prim, states)
-    return prim, states, jax.tree.map(np.asarray, out)
+    with np.load(GOLDEN) as g:
+        ref = {key: g[key] for key in g.files}
+    # the golden was made from these inputs
+    for key, v in prim.items():
+        for i, part in enumerate(v) if key == "box" else ((None, v),):
+            name = f"in/{key}" if i is None else f"in/{key}/{i}"
+            np.testing.assert_array_equal(ref[name], part, err_msg=name)
+    for name, arrays in states.items():
+        for part, a in zip(("q", "cube", "quat"), arrays):
+            np.testing.assert_array_equal(ref[f"in/{name}/{part}"], a, err_msg=name)
+    n_outs = {f: sum(key.startswith(f"prim/{f}/") for key in ref) for f in FAMILIES}
+    out = dict(prim={f: tuple(ref[f"prim/{f}/{i}"] for i in range(n)) for f, n in n_outs.items()})
+    out.update({key[len("frames/"):]: v for key, v in ref.items() if key.startswith("frames/")})
+    return prim, states, out
 
 
-@pytest.mark.parametrize("family", ["spheres", "capsules", "box", "triangles", "floor"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_intersections_match_jax(jax_refs, family):
     prim, _, ref = jax_refs
     o, d = torch.as_tensor(prim["o"]), torch.as_tensor(prim["ds"][0])
