@@ -30,6 +30,7 @@ from gym_kmanip_torch.models import canonical_device, model_tensors
 from gym_kmanip_torch.models.spec import RobotModel
 from gym_kmanip_torch.mpc.rollout import rollout
 from gym_kmanip_torch.ops.rollout_pick_cuda import PickCostSpec, rollout_pick_costs
+from gym_kmanip_torch.utils.profiling import span
 
 
 class MPPIConfig(NamedTuple):
@@ -156,6 +157,7 @@ def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
                sim_state: SimState, cost_fn: Callable,
                eps: Optional[torch.Tensor] = None, substep_fn: Callable = substep,
                score_all: Optional[Callable] = None,
+               on_costs: Optional[Callable] = None,
                ) -> Tuple[MPPIState, torch.Tensor, torch.Tensor]:
     """One MPC solve. Returns (new MPPIState, first control, expected cost).
 
@@ -167,40 +169,52 @@ def mppi_solve(model: RobotModel, cfg: MPPIConfig, mppi_state: MPPIState,
     substep the rollouts call (default: `engine.substep`). `score_all`
     optionally replaces the rollout scoring pass with a fused
     `(cand (K, H, nu), sim_state) -> (K,)` that computes the same totals
-    as `rollout(cost_fn)` to float32 rounding."""
-    device = canonical_device(mppi_state.nominal.device)
-    t = model_tensors(model, device)
-    lo, hi = t.ctrl_lo, t.ctrl_hi
-    K, H, nu = cfg.n_samples, cfg.horizon, model.nu
-    sigma = sigma_tensor(model, cfg, device)
-    eps = injected_noise(model, cfg, eps)
+    as `rollout(cost_fn)` to float32 rounding. `on_costs(iteration, costs)`,
+    if given, is handed each iteration's (K,) totals as scored (the
+    solver's own tensor: no copy, no sync).
 
-    nominal = proposal = mppi_state.nominal
-    best_cost = None
-    for it in range(cfg.n_iters):
-        e = (sample_noise(mppi_state.generator, K, H, nu, sigma, cfg.noise_beta)
-             if eps is None else eps[it])
-        e = torch.cat([torch.zeros_like(e[:1]), e[1:]])  # the nominal competes
-        cand = torch.clamp(nominal[None] + e, lo, hi)  # (K, H, nu)
-        # slot 1 scores the previous iteration's weighted average
-        cand = torch.cat([cand[:1], proposal[None], cand[2:]])
-        if score_all is not None:
-            costs = score_all(cand, sim_state)
-        else:
-            costs, _ = rollout(
-                model, sim_state, cand, cost_fn, n_substeps=cfg.n_substeps,
-                dt=cfg.dt, contact=cfg.contact, substep_fn=substep_fn,
-            )
-        # scale-invariant temperature; population std, as jnp.std
-        lam = cfg.temperature * (torch.std(costs, correction=0) + 1e-6)
-        w = torch.softmax(-(costs - torch.min(costs)) / lam, dim=0)
-        proposal = torch.clamp(torch.sum(w[:, None, None] * cand, dim=0), lo, hi)
-        best = torch.argmin(costs).view(1)  # first minimum, as jnp.argmin
-        nominal = cand.index_select(0, best)[0]
-        best_cost = costs.index_select(0, best)[0]
+    Under a `torch.profiler` session the solve records the spans
+    `mppi.solve` and, each iteration, `mppi.noise`, `mppi.candidates` and
+    `mppi.update` (`utils.profiling.span`)."""
+    with span("mppi.solve", solve=True):
+        device = canonical_device(mppi_state.nominal.device)
+        t = model_tensors(model, device)
+        lo, hi = t.ctrl_lo, t.ctrl_hi
+        K, H, nu = cfg.n_samples, cfg.horizon, model.nu
+        sigma = sigma_tensor(model, cfg, device)
+        eps = injected_noise(model, cfg, eps)
 
-    u0 = nominal[0]
-    shifted = torch.cat([nominal[1:], nominal[-1:]], dim=0)
+        nominal = proposal = mppi_state.nominal
+        best_cost = None
+        for it in range(cfg.n_iters):
+            with span("mppi.noise"):
+                e = (sample_noise(mppi_state.generator, K, H, nu, sigma, cfg.noise_beta)
+                     if eps is None else eps[it])
+            with span("mppi.candidates"):
+                e = torch.cat([torch.zeros_like(e[:1]), e[1:]])  # the nominal competes
+                cand = torch.clamp(nominal[None] + e, lo, hi)  # (K, H, nu)
+                # slot 1 scores the previous iteration's weighted average
+                cand = torch.cat([cand[:1], proposal[None], cand[2:]])
+            if score_all is not None:
+                costs = score_all(cand, sim_state)
+            else:
+                costs, _ = rollout(
+                    model, sim_state, cand, cost_fn, n_substeps=cfg.n_substeps,
+                    dt=cfg.dt, contact=cfg.contact, substep_fn=substep_fn,
+                )
+            if on_costs is not None:
+                on_costs(it, costs)
+            with span("mppi.update"):
+                # scale-invariant temperature; population std, as jnp.std
+                lam = cfg.temperature * (torch.std(costs, correction=0) + 1e-6)
+                w = torch.softmax(-(costs - torch.min(costs)) / lam, dim=0)
+                proposal = torch.clamp(torch.sum(w[:, None, None] * cand, dim=0), lo, hi)
+                best = torch.argmin(costs).view(1)  # first minimum, as jnp.argmin
+                nominal = cand.index_select(0, best)[0]
+                best_cost = costs.index_select(0, best)[0]
+
+        u0 = nominal[0]
+        shifted = torch.cat([nominal[1:], nominal[-1:]], dim=0)
     return MPPIState(nominal=shifted, generator=mppi_state.generator), u0, best_cost
 
 
@@ -217,13 +231,15 @@ def make_mppi_solver(model: RobotModel, cfg: MPPIConfig, cost_fn: Callable,
     return solve
 
 
-def make_fused_pick_solver(model: RobotModel, cfg: MPPIConfig, spec=None):
+def make_fused_pick_solver(model: RobotModel, cfg: MPPIConfig, spec=None,
+                           on_costs: Optional[Callable] = None):
     """Single-device MPPI solver for the cube-pick cost whose whole (K, H)
     rollout and cost is ONE kernel launch per iteration
     (ops/rollout_pick_cuda.rollout_pick_costs) instead of H substep
     launches and their torch glue. The totals match `rollout` with
     `cube_pick_cost` to float32 rounding, so it is the same solve:
-    (MPPIState, SimState, eps=None) -> (MPPIState, u0, J)."""
+    (MPPIState, SimState, eps=None) -> (MPPIState, u0, J). `on_costs` is
+    `mppi_solve`'s: it is handed each iteration's totals."""
     spec = spec if spec is not None else PickCostSpec()
 
     def score_all(cand, sim_state):
@@ -233,6 +249,6 @@ def make_fused_pick_solver(model: RobotModel, cfg: MPPIConfig, spec=None):
     def solve(mppi_state: MPPIState, sim_state: SimState,
               eps: Optional[torch.Tensor] = None):
         return mppi_solve(model, cfg, mppi_state, sim_state, None, eps=eps,
-                          score_all=score_all)
+                          score_all=score_all, on_costs=on_costs)
 
     return solve

@@ -30,6 +30,7 @@ from gym_kmanip_torch.mpc.cost import CostParams, cube_pick_cost
 from gym_kmanip_torch.mpc.rollout import rollout
 from gym_kmanip_torch.ops import _build
 from gym_kmanip_torch.ops.substep_cuda import SUPPORTED, _check, _model_buffers
+from gym_kmanip_torch.utils.profiling import span
 
 SOURCES = ("rollout_pick.cu",)
 HEADERS = ("rollout.cuh", "substep.cuh", "substep_team.cuh", "team.cuh")
@@ -89,7 +90,9 @@ def rollout_pick_costs(model: RobotModel, ctrl_seqs: torch.Tensor, state0: SimSt
                        implicit_actuation: bool = True) -> torch.Tensor:
     """Total pick cost (K,) of the control sequences ctrl_seqs (K, H, nu)
     rolled out from the unbatched state0, n_substeps substeps of dt per
-    control step. float32, contiguous, all on one device."""
+    control step. float32, contiguous, all on one device. Under a
+    `torch.profiler` session the CUDA branch, from the checks to the
+    launch's return, is the span `k2.wrapper` (`utils.profiling.span`)."""
     device = ctrl_seqs.device
     devices = {x.device for x in state0} | {device}
     if len(devices) != 1:
@@ -99,34 +102,35 @@ def rollout_pick_costs(model: RobotModel, ctrl_seqs: torch.Tensor, state0: SimSt
                                             dt, contact, implicit_actuation)
     if device.type != "cuda":
         raise ValueError(f"rollout_pick_costs runs on CUDA or the CPU, not {device}")
-    device = canonical_device(device)
-    nq, nu, T = model.nq, model.nu, len(model.fingertips)
-    if (nq, T) not in SUPPORTED:
-        raise ValueError(f"the kernel is built for (nq, fingertips) in {SUPPORTED}, "
-                         f"not ({nq}, {T})")
-    if ctrl_seqs.dim() != 3 or n_substeps < 1:
-        raise ValueError(f"ctrl_seqs must be (K, H, nu) and n_substeps >= 1, got "
-                         f"{tuple(ctrl_seqs.shape)} and {n_substeps}")
-    K, H = ctrl_seqs.shape[:2]
-    _check("ctrl_seqs", ctrl_seqs, device, (K, H, nu))
-    for name, x, shape in zip(SimState._fields, state0,
-                              ((nq,), (nq,), (nu,), (3,), (4,), (3,), (3,), ())):
-        _check(f"state0.{name}", x, device, shape)
+    with span("k2.wrapper"):
+        device = canonical_device(device)
+        nq, nu, T = model.nq, model.nu, len(model.fingertips)
+        if (nq, T) not in SUPPORTED:
+            raise ValueError(f"the kernel is built for (nq, fingertips) in {SUPPORTED}, "
+                             f"not ({nq}, {T})")
+        if ctrl_seqs.dim() != 3 or n_substeps < 1:
+            raise ValueError(f"ctrl_seqs must be (K, H, nu) and n_substeps >= 1, got "
+                             f"{tuple(ctrl_seqs.shape)} and {n_substeps}")
+        K, H = ctrl_seqs.shape[:2]
+        _check("ctrl_seqs", ctrl_seqs, device, (K, H, nu))
+        for name, x, shape in zip(SimState._fields, state0,
+                                  ((nq,), (nq,), (nu,), (3,), (4,), (3,), (3,), ())):
+            _check(f"state0.{name}", x, device, shape)
 
-    spec_f, spec_i = spec_arrays(model, spec)
-    with torch.cuda.device(device):
-        model_f, model_i = _model_buffers(model, device)
-        start = torch.cat([state0.qpos, state0.qvel, state0.cube_pos, state0.cube_quat,
-                           state0.cube_linvel, state0.cube_angvel])
-        cost = torch.empty(K, dtype=torch.float32, device=device)
-        rc = _library().kmanip_rollout_pick(
-            nq, T, model_f.data_ptr(), model_i.data_ptr(), float(dt),
-            int(bool(contact)), int(bool(implicit_actuation)), int(n_substeps), K, H,
-            spec_f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            spec_i.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-            ctrl_seqs.data_ptr(), start.data_ptr(), cost.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        spec_f, spec_i = spec_arrays(model, spec)
+        with torch.cuda.device(device):
+            model_f, model_i = _model_buffers(model, device)
+            start = torch.cat([state0.qpos, state0.qvel, state0.cube_pos, state0.cube_quat,
+                               state0.cube_linvel, state0.cube_angvel])
+            cost = torch.empty(K, dtype=torch.float32, device=device)
+            rc = _library().kmanip_rollout_pick(
+                nq, T, model_f.data_ptr(), model_i.data_ptr(), float(dt),
+                int(bool(contact)), int(bool(implicit_actuation)), int(n_substeps), K, H,
+                spec_f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                spec_i.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                ctrl_seqs.data_ptr(), start.data_ptr(), cost.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
     if rc != 0:
         raise RuntimeError(f"rollout_pick kernel launch failed: cudaError_t {rc}")
     rollout_pick_costs.launches += 1

@@ -821,3 +821,67 @@ def test_sharded_mppi_on_card_matches_single_device(cuda):
     ms1, u01, J1 = make_mppi_solver(m, cfg, cost)(init_mppi(m, cfg, device=cuda), s, eps=eps)
     for got, want, tol in ((u0, u01, 1e-5), (J, J1, 1e-4), (ms.nominal, ms1.nominal, 1e-5)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol, rtol=0)
+
+
+def test_k2_wrapper_span_is_on_the_clock_of_a_cuda_trace(cuda):
+    """The spans of `utils.profiling` on the axis of a trace of CUDA activity
+    alone (as the benchmark profiles): `trace_base_ns()` is the trace's
+    origin, the n-th K2 kernel starts after the n-th `k2.wrapper` span
+    starts, and the runtime call that launched it lies inside that span
+    (within 20 us), over 20 fused solves at K=256, H=50. Prints the
+    readings."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym_kmanip_torch.dynamics.state import init_state
+    from gym_kmanip_torch.mpc import mppi
+    from gym_kmanip_torch.utils import profiling
+
+    m = get_model("solo_arm")
+    cfg = mppi.MPPIConfig(n_samples=256)
+    solve = mppi.make_fused_pick_solver(m, cfg)
+    st, s0 = mppi.init_mppi(m, cfg, device=cuda), init_state(m, device=cuda)
+    for _ in range(3):  # the build and the warm-up
+        st, u0, _ = solve(st, s0)
+    torch.cuda.synchronize()
+    base = profiling.trace_base_ns()
+    profiling.clear_spans()
+    n = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            st, u0, _ = solve(st, s0)
+            u0.cpu()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.remove(path)
+    events = trace["traceEvents"]
+    assert trace.get("baseTimeNanoseconds", 0) == base
+    spans = [s for s in profiling.spans() if s.name == "k2.wrapper"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and "rollout_pick_kernel" in e.get("name", "")), key=lambda e: e["ts"])
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    assert len([s for s in profiling.spans() if s.name == "mppi.solve"]) == n
+    assert len(spans) == len(kernels) == n
+    readings = []
+    for s, k in zip(spans, kernels):
+        a, b = (s.start_ns - base) / 1e3, (s.end_ns - base) / 1e3
+        call = runtime[k["args"]["correlation"]]
+        readings.append((call["ts"] - a, b - (call["ts"] + call["dur"]), k["ts"] - a, b - a))
+        assert k["ts"] >= a
+        assert a - 20.0 <= call["ts"] and call["ts"] + call["dur"] <= b + 20.0
+    print("k2.wrapper against K2's launch, us (launch start - span start, span end - launch "
+          "end, kernel start - span start, span length), min / median / max:")
+    for name, col in zip(("launch_after_start", "end_after_launch", "kernel_after_start",
+                          "span"), zip(*readings)):
+        col = sorted(col)
+        print(f"  {name}: {col[0]:.2f} / {col[len(col) // 2]:.2f} / {col[-1]:.2f}")
