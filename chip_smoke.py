@@ -4,8 +4,9 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. build:       compile the eight CUDA libraries from gym_kmanip_torch/csrc,
-                  K1 and K2 with the solo-width team shapes they were not
-                  built with, K5 and K7 with their other items per block,
+                  K1 with the solo-width team shapes it was not built with,
+                  K2 with its other warps per block, K5 and K7 with their
+                  other items per block,
                   and K6 with its other team width (ALTERNATES), one nvcc
                   each, all at once; ptxas's registers, stack and spills of
                   every kernel.
@@ -25,8 +26,11 @@ Phases (any failure raises, and the script exits non-zero):
   5. K2 pick:     the whole-horizon pick-cost kernel against its plain
                   version at K=256 (H=1 1e-5, H=3 1e-3, H=50 1e-4 of the
                   largest total) and against the K1 route's totals at H=50;
-                  its time; the alternate team shapes at H=50, checked and
-                  timed.
+                  its time; both team widths of its library at H=50, at
+                  K=256 against the plain version and at K=4096 against
+                  each other (bit for bit), each timed, and the width the
+                  wrapper picks at each K; the alternate block shape at
+                  H=50, checked and timed.
   6. fused MPPI:  the fused solve against the K1-route solve on one draw at
                   H=4 (u0 1e-5, J 1e-4, nominal 1e-5); 20 solves at H=50,
                   K=256 with n_iters K2 launches and no K1 launch per solve;
@@ -302,19 +306,19 @@ WRAPPERS = {
     "K8": sweep_floor_cuda.sweep,
 }
 STAGED = ("K5", "K6", "K7")  # launched by the staged substep route only
-# The team widths and warps per block that K1 and K2 were not built with at
-# solo width (csrc/substep.cu, csrc/rollout_pick.cu), the warps per block
-# that K5 (csrc/rnea.cu, solo width) and K7 (csrc/chol_solve.cu) were not
-# built with, and the team width that K6 (csrc/contacts.cu) was not built
-# with: built with -D beside the kernels, checked against the plain
-# versions and timed beside them. KMANIP_SOLO_ONLY leaves out the torso
-# kernels, which these flags do not change.
+# The team widths and warps per block that K1 was not built with at solo
+# width (csrc/substep.cu), the warps per block that K2 (csrc/rollout_pick.cu,
+# whose library holds both solo team widths), K5 (csrc/rnea.cu, solo width)
+# and K7 (csrc/chol_solve.cu) were not built with, and the team width that
+# K6 (csrc/contacts.cu) was not built with: built with -D beside the
+# kernels, checked against the plain versions and timed beside them.
+# KMANIP_SOLO_ONLY leaves out the torso kernels, which these flags do not
+# change.
 ALTERNATES = {
     "K1": (substep_cuda, {
         "16 lanes, 4 warps per block": ("-DKMANIP_SOLO_LANES=16", "-DKMANIP_SOLO_ONLY"),
         "32 lanes, 1 warp per block": ("-DKMANIP_TEAM_WARPS=1", "-DKMANIP_SOLO_ONLY")}),
     "K2": (rollout_pick_cuda, {
-        "16 lanes, 1 warp per block": ("-DKMANIP_SOLO_LANES=16", "-DKMANIP_SOLO_ONLY"),
         "32 lanes, 4 warps per block": ("-DKMANIP_TEAM_WARPS=4", "-DKMANIP_SOLO_ONLY")}),
     "K5": (rnea_cuda, {
         "1 warp per block": ("-DKMANIP_RNEA_WARPS=1", "-DKMANIP_SOLO_ONLY")}),
@@ -351,6 +355,22 @@ class built_with:
 
     def __exit__(self, *exc):
         self.mod._library = self.saved
+
+
+class k2_lanes:
+    """Runs K2's launches on teams of `lanes` lanes for as long as it lasts,
+    whatever K (the wrapper picks the width from K otherwise)."""
+
+    def __init__(self, lanes):
+        self.lanes = lanes
+
+    def __enter__(self):
+        self.saved = rollout_pick_cuda.team_lanes
+        rollout_pick_cuda.team_lanes = lambda *args: self.lanes
+        return self
+
+    def __exit__(self, *exc):
+        rollout_pick_cuda.team_lanes = self.saved
 
 
 def log(phase, msg):
@@ -703,7 +723,34 @@ def phase_pick_kernel(model):
     b = bound(flops, 4 * (K * H * model.nu + 2 * model.nq + 13 + K))
     log("K2", f"K={K} H={H}: kernel {ms:.4f} ms (32 lanes, 1 warp per block), plain "
               f"{plain_ms:.2f} ms, max_abs_err {worst:.3e}, bound {b[0]:.6f} ms ({b[1]})")
+    # both team widths of the one library: at K=256 each against the plain
+    # version, at the fill point K=4096 the half-warp teams against the warp
+    # teams, bit for bit; the width the wrapper picks at each K
+    lib = rollout_pick_cuda._library()
+    for lanes in (32, 16):
+        n, sms = rollout_pick_cuda.resident(lib, model.nq, len(model.fingertips), lanes, True,
+                                            True)
+        log("K2", f"{lanes} lanes: {n} teams resident on the card's {sms} SMs")
     teams = {}
+    U_fill = torch.as_tensor((model.home_qpos[: model.nu] + 0.1 * rng.randn(4096, H, model.nu))
+                             .astype(np.float32), device=DEV)
+    for U_, K_ in ((U, K), (U_fill, 4096)):
+        picked = rollout_pick_cuda.team_lanes(lib, model, K_, True, True, DEV)
+        out = {}
+        for lanes in (32, 16):
+            with k2_lanes(lanes):
+                out[lanes] = rollout_pick_cuda.rollout_pick_costs(model, U_, s0)
+                lanes_ms = cuda_ms(lambda: rollout_pick_cuda.rollout_pick_costs(model, U_, s0), 20)
+            label = f"{lanes} lanes, 1 warp per block, K={K_}"
+            if K_ == K:
+                err = max_err(out[lanes], want)
+                check("K2", f"{label}: kernel vs plain, K={K} H={H}", err, 1e-4 * scale)
+            else:
+                err = max_err(out[lanes], out[32])
+                check("K2", f"{label}: kernel vs 32 lanes, K={K_} H={H}", err, 0.0)
+            teams[label] = dict(max_abs_err=err, ms=lanes_ms, picked=lanes == picked)
+            log("K2", f"{label}: {lanes_ms:.4f} ms at H={H}"
+                      + (" (the wrapper's pick)" if lanes == picked else ""))
     for i, label in enumerate(ALTERNATES["K2"][1]):
         with built_with("K2", i):
             alt_err = max_err(rollout_pick_cuda.rollout_pick_costs(model, U, s0), want)

@@ -5,9 +5,11 @@ Replaces the JAX package's Pallas TPU kernel
 `gym_kmanip_tpu/ops/pallas_substep.py::rollout_pick_costs` and keeps its
 signature and output: the (K,) total pick cost of K control sequences from
 one shared start state. `rollout_pick_costs` launches the kernel for CUDA
-tensors and counts the launch in `rollout_pick_costs.launches`; for CPU
-tensors it runs the plain version, `rollout_pick_costs_reference` (the
-port's `rollout` with `cube_pick_cost`). Anything else raises.
+tensors and counts the launch in `rollout_pick_costs.launches`, and in
+`rollout_pick_costs.pair_launches` where it ran two rollouts a warp
+(`team_lanes`); for CPU tensors it runs the plain version,
+`rollout_pick_costs_reference` (the port's `rollout` with
+`cube_pick_cost`). Anything else raises.
 
 Importing this module needs neither nvcc nor a GPU: the kernel is built
 (ops/_build.py) at its first launch, or ahead of it by
@@ -37,6 +39,9 @@ HEADERS = ("rollout.cuh", "substep.cuh", "substep_team.cuh", "team.cuh")
 LIBRARY = ("rollout_pick", SOURCES, HEADERS)
 
 _P = ctypes.c_void_p
+# Warp schedulers per SM on the cards the library is built for (sm_90: four
+# sub-partitions, each issuing for its own warps).
+SCHEDULERS_PER_SM = 4
 
 
 class PickCostSpec(NamedTuple):
@@ -58,15 +63,61 @@ def _library() -> ctypes.CDLL:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C entry point's argument types on a loaded library."""
+    """Declares the C entry points' argument types on a loaded library, and
+    gives it `pair_above`: (nq, fingertips, contact, implicit, device index)
+    -> the K above which a launch runs on half-warp teams (`team_lanes`)."""
     lib.kmanip_rollout_pick.argtypes = [
-        ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_double,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
         _P, _P, _P, _P,
     ]
     lib.kmanip_rollout_pick.restype = ctypes.c_int
+    lib.kmanip_rollout_pick_resident.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.kmanip_rollout_pick_resident.restype = ctypes.c_int
+    lib.pair_above = {}
     return lib
+
+
+def resident(lib: ctypes.CDLL, nq: int, T: int, lanes: int, contact: bool, implicit: bool):
+    """(teams, SMs): how many teams of `lanes` lanes of the kernel for
+    (nq, T, contact, implicit) the current device holds at once, and its
+    SM count (csrc/rollout_pick.cu, kmanip_rollout_pick_resident)."""
+    teams, sms = ctypes.c_int(), ctypes.c_int()
+    rc = lib.kmanip_rollout_pick_resident(nq, T, lanes, int(contact), int(implicit),
+                                          ctypes.byref(teams), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"reading the rollout_pick kernel's occupancy failed: cudaError_t {rc}")
+    return teams.value, sms.value
+
+
+def _pair_above(lib, nq, T, contact, implicit) -> int:
+    """The K above which the warp team would put more than one warp on a
+    warp scheduler, in one wave or in several: the warp team's resident
+    teams per SM, at most one per scheduler, times the SMs. On an H100
+    (12 resident, 132 SMs) that is 528, where the two widths' times cross
+    (PERF.md §6)."""
+    teams, sms = resident(lib, nq, T, 32, contact, implicit)
+    return min(teams // sms, SCHEDULERS_PER_SM) * sms
+
+
+def team_lanes(lib: ctypes.CDLL, model: RobotModel, K: int, contact: bool, implicit: bool,
+               device: torch.device) -> int:
+    """Lanes per team for a launch of K rollouts on `device`, the current
+    device: 16, two rollouts a warp, at solo width (nq <= 16) once K is
+    above `_pair_above` (read once per library, model, modes and device);
+    32 otherwise. Alone on a scheduler the warp team's chain is the
+    shorter; sharing one, the warp team leaves most of its issue slots to
+    idle lanes, and two half-warp teams a warp do the same work in fewer
+    warp instructions (PERF.md §6)."""
+    if model.nq > 16:
+        return 32
+    key = (model.nq, len(model.fingertips), contact, implicit, device.index)
+    above = lib.pair_above.get(key)
+    if above is None:
+        above = lib.pair_above[key] = _pair_above(lib, *key[:4])
+    return 16 if K > above else 32
 
 
 def spec_arrays(model: RobotModel, spec: PickCostSpec):
@@ -90,7 +141,8 @@ def rollout_pick_costs(model: RobotModel, ctrl_seqs: torch.Tensor, state0: SimSt
                        implicit_actuation: bool = True) -> torch.Tensor:
     """Total pick cost (K,) of the control sequences ctrl_seqs (K, H, nu)
     rolled out from the unbatched state0, n_substeps substeps of dt per
-    control step. float32, contiguous, all on one device. Under a
+    control step. float32, contiguous, all on one device. The team width
+    follows K (`team_lanes`), which changes no total. Under a
     `torch.profiler` session the CUDA branch, from the checks to the
     launch's return, is the span `k2.wrapper` (`utils.profiling.span`)."""
     device = ctrl_seqs.device
@@ -118,14 +170,17 @@ def rollout_pick_costs(model: RobotModel, ctrl_seqs: torch.Tensor, state0: SimSt
             _check(f"state0.{name}", x, device, shape)
 
         spec_f, spec_i = spec_arrays(model, spec)
+        contact, implicit_actuation = bool(contact), bool(implicit_actuation)
+        lib = _library()
         with torch.cuda.device(device):
             model_f, model_i = _model_buffers(model, device)
+            lanes = team_lanes(lib, model, K, contact, implicit_actuation, device)
             start = torch.cat([state0.qpos, state0.qvel, state0.cube_pos, state0.cube_quat,
                                state0.cube_linvel, state0.cube_angvel])
             cost = torch.empty(K, dtype=torch.float32, device=device)
-            rc = _library().kmanip_rollout_pick(
-                nq, T, model_f.data_ptr(), model_i.data_ptr(), float(dt),
-                int(bool(contact)), int(bool(implicit_actuation)), int(n_substeps), K, H,
+            rc = lib.kmanip_rollout_pick(
+                nq, T, lanes, model_f.data_ptr(), model_i.data_ptr(), float(dt),
+                int(contact), int(implicit_actuation), int(n_substeps), K, H,
                 spec_f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
                 spec_i.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
                 ctrl_seqs.data_ptr(), start.data_ptr(), cost.data_ptr(),
@@ -134,10 +189,13 @@ def rollout_pick_costs(model: RobotModel, ctrl_seqs: torch.Tensor, state0: SimSt
     if rc != 0:
         raise RuntimeError(f"rollout_pick kernel launch failed: cudaError_t {rc}")
     rollout_pick_costs.launches += 1
+    if lanes == 16:
+        rollout_pick_costs.pair_launches += 1
     return cost
 
 
 rollout_pick_costs.launches = 0
+rollout_pick_costs.pair_launches = 0  # the launches on half-warp teams
 
 
 def rollout_pick_costs_reference(model: RobotModel, ctrl_seqs, state0, spec=PickCostSpec(),

@@ -147,6 +147,82 @@ def test_rollout_pick_kernel_matches_plain_at_main_path_shape_on_cuda(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4 * scale, rtol=0)
 
 
+def test_rollout_pick_half_warp_teams_equal_warp_teams_at_fill_on_cuda(cuda, monkeypatch):
+    """K2 at the fill point, K=4,096 solo sequences at H=50 with contact (the
+    cube at the first fingertip, so the contact lanes run), takes two
+    rollouts a warp, and its trace name shows the half-warp team; scored
+    again in chunks of 256, which take the warp team, the totals are equal
+    bit for bit, and so are those of K=4,095 (the last warp's second half
+    runs a copy). `rollout_pick_costs.pair_launches` counts exactly the
+    launches the wrapper sent to half-warp teams. The torso at K=4,096
+    keeps the warp team."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym_kmanip_torch.dynamics import engine
+    from gym_kmanip_torch.dynamics.state import init_state
+    from gym_kmanip_torch.ops import kinematics as kin
+    from gym_kmanip_torch.ops import rollout_pick_cuda as rp
+
+    picked = []
+    team_lanes = rp.team_lanes
+
+    def spy(*args):
+        picked.append(team_lanes(*args))
+        return picked[-1]
+
+    monkeypatch.setattr(rp, "team_lanes", spy)
+
+    def score(m, U, s0):
+        wrapper, n = rp.rollout_pick_costs, len(picked)
+        launches, pairs = wrapper.launches, wrapper.pair_launches
+        out = wrapper(m, U, s0, rp.PickCostSpec(use_left=len(m.fingertips) > 2))
+        torch.cuda.synchronize()
+        assert wrapper.launches == launches + 1
+        assert wrapper.pair_launches == pairs + picked[n:].count(16)
+        return out, picked[-1]
+
+    m = get_model("solo_arm")
+    home = torch.as_tensor(m.home_qpos, dtype=torch.float32)
+    tip0 = engine._tips_from_frames(m, *kin.fk(m, home)[:2])[0].numpy()
+    s0 = init_state(m, cube_pos=tip0, device=cuda)
+    rng = np.random.RandomState(17)
+    U = torch.as_tensor((m.home_qpos[: m.nu] + 0.1 * rng.randn(4096, 50, m.nu)).astype(
+        np.float32), device=cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        full, lanes = score(m, U, s0)
+    assert lanes == 16
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel" and "rollout_pick_kernel" in e.get("name", "")]
+    finally:
+        os.remove(path)
+    assert len(names) == 1 and "kmanip::HalfWarpTeam" in names[0], names
+    chunks = [score(m, U[i:i + 256], s0) for i in range(0, 4096, 256)]
+    assert [lanes for _, lanes in chunks] == [32] * 16
+    chunked = torch.cat([out for out, _ in chunks])
+    assert bool(torch.isfinite(full).all())
+    np.testing.assert_array_equal(full.cpu().numpy().view(np.uint32),
+                                  chunked.cpu().numpy().view(np.uint32))
+    ragged, lanes = score(m, U[:4095], s0)
+    assert lanes == 16
+    np.testing.assert_array_equal(ragged.cpu().numpy().view(np.uint32),
+                                  full[:4095].cpu().numpy().view(np.uint32))
+
+    torso = get_model("torso")
+    U = torch.as_tensor((torso.home_qpos[: torso.nu] + 0.1 * rng.randn(4096, 50, torso.nu))
+                        .astype(np.float32), device=cuda)
+    _, lanes = score(torso, U, _state(torso, cuda))
+    assert lanes == 32
+
+
 def float64_twin(m, device, monkeypatch):
     """A copy of model `m` whose constants, and the scene's, are float64 on
     `device`, so that a plain version given float64 inputs runs in float64

@@ -504,6 +504,9 @@ int with_team(int threads, int nq, int T, int contact, int implicit, F f) {
   auto widths = [&](auto n, auto t) {
     if (threads == 1) modes(n, t, IC<1>{});
     else if (threads == 4) modes(n, t, IC<4>{});
+#ifdef HOST_HALF_WARP
+    else if (threads == 16) modes(n, t, IC<16>{});
+#endif
     else return -1;
     return 0;
   };
@@ -1036,9 +1039,11 @@ def host_kernel(tmp_path_factory):
         pytest.skip("no g++ to compile the kernel source for the host")
     d = tmp_path_factory.mktemp("host_kernel")
     base, k1, k2, k8 = _HOST_HARNESS
-    # the team parts once per model, their entry points named host_*_team_<nq>
+    # the team parts once per model, their entry points named host_*_team_<nq>;
+    # K2's at solo width also on 16 threads, its half-warp team's width
     parts = [_HOST_PRELUDE + base, _HOST_PRELUDE + k8] + [
-        f"#define HOST_NQ {nq}\n" + _HOST_PRELUDE
+        f"#define HOST_NQ {nq}\n" + ("#define HOST_HALF_WARP\n" if part is k2 and nq == 10
+                                     else "") + _HOST_PRELUDE
         + re.sub(r"(host_\w+_team)\(", rf"\1_{nq}(", part)
         for nq in (10, 20) for part in (k1, k2)]
     procs, libs = [], []
@@ -1262,11 +1267,12 @@ def test_substep_team_matches_serial_on_host(host_kernel, name, dt, implicit, co
 @pytest.mark.parametrize("dt,implicit", MODES)
 def test_rollout_pick_team_matches_serial_on_host(host_kernel, name, dt, implicit):
     """K2's team rollout (csrc/rollout.cuh) at H=8 with contact, on one
-    thread and on a team of four threads behind a barrier: bit for bit the
-    serial rollout_pick_thread's totals (at dt=0.002 two substeps per
-    control step), from two start states: the cube at rest on the table,
-    and the cube at the first fingertip. The serial rollouts have the cube
-    on the table and a fingertip on it at some steps."""
+    thread and on a team of four threads behind a barrier, and at solo width
+    on sixteen (the half-warp team's layout): bit for bit the serial
+    rollout_pick_thread's totals (at dt=0.002 two substeps per control
+    step), from two start states: the cube at rest on the table, and the
+    cube at the first fingertip. The serial rollouts have the cube on the
+    table and a fingertip on it at some steps."""
     m = from_numpy_model(jax_get_model(name))
     nq, nu, T = m.nq, m.nu, len(m.fingertips)
     mf, mi = substep_cuda.pack_model(m)
@@ -1289,7 +1295,8 @@ def test_rollout_pick_team_matches_serial_on_host(host_kernel, name, dt, implici
         touched += n_touch.value
         on_table += n_table.value
         costs = {}
-        for threads in (0, 1, 4):
+        widths = (1, 4, 16) if nq <= 16 else (1, 4)
+        for threads in (0,) + widths:
             cost = np.zeros(K, np.float32)
             args = (nq, T, _ptr(mf), _ptr(mi), dt, 1, int(implicit), n_sub, K, H,
                     _ptr(spec_f), _ptr(spec_i), _ptr(U), _ptr(start), _ptr(cost))
@@ -1297,7 +1304,7 @@ def test_rollout_pick_team_matches_serial_on_host(host_kernel, name, dt, implici
                   else host_kernel.host_rollout_pick_team(threads, *args))
             assert rc == 0 and np.isfinite(cost).all()
             costs[threads] = cost
-        for threads in (1, 4):
+        for threads in widths:
             np.testing.assert_array_equal(costs[threads].view(np.uint32),
                                           costs[0].view(np.uint32),
                                           err_msg=f"{threads} thread(s) vs serial")
